@@ -1,0 +1,426 @@
+#!/usr/bin/env python3
+"""End-to-end check of the PyTorch port (`src/repro_torch/`) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, each printing its own lines; any failure exits non-zero before the
+last line:
+
+  1. the card: `nvidia-smi` name and power limit, torch and CUDA versions;
+  2. build: every kernel of `src/repro_torch/kernels/csrc/` compiled with
+     nvcc for sm_90a, one nvcc a source, all at once;
+  3. kernels: the full-width MobileNetV2 fixture (alpha 1.0, 224x224, act8,
+     `tests/golden_torch/`) is walked on its 8 images with the plain
+     PyTorch route, and every kernel call the served path makes (irb0/dw,
+     irb0/project, irb1..irb16, tail/pw, classifier/fc) is run on exactly
+     that input, through the kernel and through its plain version: they
+     must be equal (tolerance: exact). Each prints its time (CUDA events,
+     median of 25), the plain version's, one PyTorch library call's where
+     one computes the same accumulation, and the least time the card could
+     take (bytes at 3.35 TB/s or int8 operations at 1979 TOP/s; activations
+     counted at 1 byte a value, since every one lies in [0, 255]);
+  4. serve: `VisionEngine.from_artifact` on `cuda` serves the 8 images as
+     8 requests, with the launch counters set to 0 just before and read
+     just after; the logits must equal the JAX package's `run_qnet` logits
+     stored in the fixture bit for bit, every CU stage's output its stored
+     digest, and the port's `cu.run_qnet` on the card the same logits;
+  5. throughput: a closed loop over buckets 1/2/4/8 and a one-request-at-a-
+     time loop, with FPS and p50/p95 latency, per-stage device times, and a
+     short torch.profiler window (device busy share: the union of the
+     device-side kernel and copy intervals over the wall time; top kernels);
+  6. the kernels' JSON line, the card line, and
+     {"ok": true, "device": {"platform": "gpu", ...}} as the last line.
+
+Imports nothing of JAX or of the JAX package.
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+FIXTURE = os.path.join(ROOT, "tests", "golden_torch",
+                       "mobilenet_v2_alpha1_224_act8")
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core peak, same source
+REPLACES = {
+    "pointwise_conv_q": "src/repro/kernels/pointwise_conv.py:109",
+    "depthwise_conv_q": "src/repro/kernels/depthwise_conv.py:126",
+    "fused_irb_q": "src/repro/kernels/fused_irb.py:163",
+}
+EXPECTED_LAUNCHES = {"pointwise_conv_q": 3, "depthwise_conv_q": 1,
+                     "fused_irb_q": 16}
+REPS = 25
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def images():
+    """The fixture's inputs, regenerated from their seed."""
+    import numpy as np
+    return np.random.default_rng(0).uniform(
+        -1, 1, (8, 224, 224, 3)).astype(np.float32)
+
+
+def digests(act) -> list:
+    import numpy as np
+    u8 = np.ascontiguousarray(act.cpu().numpy().astype(np.uint8))
+    return [hashlib.sha256(row.tobytes()).hexdigest() for row in u8]
+
+
+def time_ms(fn, reps: int = REPS) -> float:
+    """Median device time of one call, CUDA events around each call."""
+    import torch
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1))
+    return statistics.median(times)
+
+
+def nbytes(*ts) -> int:
+    """Bytes of tensors as stored (weights and per-channel constants)."""
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bytes_moved(acts_in: int, acts_out: int, consts: int):
+    """(least, as stored): the bytes a call must move with its activations
+    at 1 byte a value (all lie in [0, 255]), and with them as the int32 the
+    kernels read and write."""
+    return acts_in + acts_out + consts, 4 * (acts_in + acts_out) + consts
+
+
+def main_path_calls(pq, x):
+    """Walk the net on `x` with the plain route; return every kernel call
+    the served path makes, as (kernel, label, kernel_fn, plain_fn,
+    library_fn or None, (least bytes, bytes as stored), ops)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core import cu, graph as G
+    from repro_torch.kernels import ops as K
+    from repro_torch.kernels.depthwise_conv import (
+        depthwise_conv_q, depthwise_conv_q_plain)
+    from repro_torch.kernels.fused_irb import fused_irb_q, fused_irb_q_plain
+    from repro_torch.kernels.pointwise_conv import (
+        pointwise_conv_q, pointwise_conv_q_plain)
+
+    calls = []
+    s, z = cu.input_qparams(pq)
+    y = cu.quantize_input(x, pq.input_scale, z)
+    for block in pq.spec.blocks:
+        if K.fusable_irb(block):
+            tensors, kw, _, _ = K.irb_args(block, pq, s, z)
+            xin = y
+            b, h, w, c = xin.shape
+            e_ch, c_out = tensors[0].shape[1], tensors[8].shape[1]
+            kk = kw["kernel"] ** 2
+            ho, wo = -(-h // kw["stride"]), -(-w // kw["stride"])
+            ops = 2 * b * (h * w * c * e_ch + ho * wo * e_ch * kk
+                           + ho * wo * e_ch * c_out)
+            calls.append((
+                "fused_irb_q", block.name,
+                lambda a=xin, t=tensors, k=kw: fused_irb_q(a, *t, **k),
+                lambda a=xin, t=tensors, k=kw: fused_irb_q_plain(a, *t, **k),
+                None,
+                bytes_moved(xin.numel(), b * ho * wo * c_out,
+                            nbytes(*tensors)), ops))
+        else:
+            h_in = y
+            for op in block.ops:
+                pop = pq.ops[op.name]
+                if op.kind == G.DW:
+                    kw = dict(kernel=op.kernel, stride=op.stride,
+                              qmax=pop.qmax)
+                    args = (h_in, pop.w_kern, pop.mult, pop.zpc, pop.bias_q)
+                    xf = h_in.to(torch.float32).permute(0, 3, 1, 2)
+                    wf = pop.w_kern.to(torch.float32).permute(2, 0, 1)[:, None]
+                    pad = (op.kernel - 1) // 2
+                    b, hh, ww, c = h_in.shape
+                    ho, wo = -(-hh // op.stride), -(-ww // op.stride)
+                    calls.append((
+                        "depthwise_conv_q", op.name,
+                        lambda a=args, k=kw: depthwise_conv_q(*a, **k),
+                        lambda a=args, k=kw: depthwise_conv_q_plain(*a, **k),
+                        lambda xf=xf, wf=wf, st=op.stride, p=pad, g=c:
+                            F.conv2d(xf, wf, stride=st, padding=p, groups=g),
+                        bytes_moved(h_in.numel(), b * ho * wo * c,
+                                    nbytes(*args[1:])),
+                        2 * b * ho * wo * c * op.kernel ** 2))
+                elif op.kind in (G.PW, G.DENSE):
+                    kw = dict(qmax=pop.qmax)
+                    args = (h_in, pop.w_kern, pop.mult, pop.zpc, pop.bias_q)
+                    k_dim, n_dim = pop.w_kern.shape
+                    m = h_in.numel() // k_dim
+                    xf = h_in.reshape(m, k_dim).to(torch.float32)
+                    wf = pop.w_kern.to(torch.float32)
+                    calls.append((
+                        "pointwise_conv_q", op.name,
+                        lambda a=args, k=kw: pointwise_conv_q(*a, **k),
+                        lambda a=args, k=kw: pointwise_conv_q_plain(*a, **k),
+                        lambda xf=xf, wf=wf: torch.matmul(xf, wf),
+                        bytes_moved(h_in.numel(), m * n_dim,
+                                    nbytes(*args[1:])),
+                        2 * m * k_dim * n_dim))
+                h_in = cu.run_qop(h_in, pop)
+        y, s, z = cu.run_block(y, block, pq, s, z)
+    return calls
+
+
+def phase_kernels(pq, x):
+    import torch
+
+    print("[kernels] each kernel against its plain version on the main "
+          "path's inputs, batch 8 (tolerance: exact)")
+    rows = {}
+    for name, label, kern, plain, lib, (nb, nb32), ops in \
+            main_path_calls(pq, x):
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        if got.shape != want.shape or err != 0:
+            raise SystemExit(f"[kernels] {name}[{label}] differs from its "
+                             f"plain version: max |err| {err}")
+        ms, plain_ms = time_ms(kern), time_ms(plain)
+        lib_ms = time_ms(lib) if lib is not None else None
+        bytes_ms = nb / HBM_BYTES_PER_S * 1e3
+        bytes32_ms = nb32 / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / INT8_OPS_PER_S * 1e3
+        print(f"  {name}[{label}] {tuple(got.shape)} max_abs_err={err} "
+              f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+              f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} "
+              f"bound_ms={max(bytes_ms, ops_ms):.5f} "
+              f"({'bytes' if bytes_ms >= ops_ms else 'operations'}; "
+              f"int32 activations: {max(bytes32_ms, ops_ms):.5f})")
+        r = rows.setdefault(name, dict(err=0, ms=0.0, plain_ms=0.0,
+                                       lib_ms=0.0, has_lib=True,
+                                       bytes_ms=0.0, ops_ms=0.0, bound=0.0,
+                                       bound32=0.0))
+        r["err"] = max(r["err"], err)
+        r["ms"] += ms
+        r["plain_ms"] += plain_ms
+        r["has_lib"] &= lib_ms is not None
+        r["lib_ms"] += lib_ms or 0.0
+        r["bytes_ms"] += bytes_ms
+        r["ops_ms"] += ops_ms
+        r["bound"] += max(bytes_ms, ops_ms)
+        r["bound32"] += max(bytes32_ms, ops_ms)
+    for name, r in rows.items():
+        print(f"[kernels] {name}: ms {r['ms']:.4f} over the micro-batch, "
+              f"bound_ms {r['bound']:.5f} (1-byte activations), "
+              f"{r['bound32']:.5f} (int32 activations)")
+    return rows
+
+
+def phase_serve(imgs, fix):
+    import numpy as np
+    import torch
+
+    from repro_torch.core import cu
+    from repro_torch.kernels import ops as K
+    from repro_torch.serve.vision import VisionEngine
+
+    eng = VisionEngine.from_artifact(FIXTURE + ".qnet", device="cuda",
+                                     buckets=(8,))
+    eng.warmup()
+    K.reset_launch_counts()
+    rids = [eng.submit(img) for img in imgs]
+    res = eng.run()
+    counts = K.launch_counts()
+    stats = eng.stats()
+    print(f"[serve] launch counts {counts}; micro-batches "
+          f"{stats.micro_batches}; stage invocations "
+          f"{stats.stage_invocations}")
+    want = {k: v * stats.micro_batches for k, v in EXPECTED_LAUNCHES.items()}
+    if counts != want:
+        raise SystemExit(f"[serve] launches {counts} != expected {want}")
+    logits = np.stack([res[r].logits for r in rids])
+    n_diff = int(np.sum(logits != fix["logits"]))
+    print(f"[serve] {len(rids)} images: {n_diff} of {logits.size} logits "
+          f"differ from the JAX package's run_qnet")
+    if n_diff:
+        raise SystemExit("[serve] logits are not bit-identical")
+    y = torch.from_numpy(imgs).to(eng.device)
+    for i, st in enumerate(eng.stages):
+        y = st.run(y)
+        if i + 1 < len(eng.stages) and \
+                digests(y) != list(fix["stage_sha256"][i]):
+            raise SystemExit(f"[serve] stage {i} ({st.spec.cu}) output "
+                             f"differs from the reference's")
+    print(f"[serve] every stage output equals the reference's digests")
+    ref = cu.run_qnet(eng.pq, imgs).cpu().numpy()
+    n_diff = int(np.sum(ref != fix["logits"]))
+    print(f"[run_qnet] the port's cu.run_qnet on the card: {n_diff} of "
+          f"{ref.size} logits differ from the JAX package's")
+    if n_diff:
+        raise SystemExit("[run_qnet] logits are not bit-identical")
+    return counts
+
+
+def phase_throughput(imgs, card):
+    import torch
+
+    from repro_torch.serve.vision import VisionEngine
+
+    eng = VisionEngine.from_artifact(FIXTURE + ".qnet", device="cuda",
+                                     buckets=(1, 2, 4, 8))
+    eng.warmup()
+    n, t_end = 0, time.perf_counter() + 4.0
+    while time.perf_counter() < t_end:
+        for i in range(64):
+            eng.submit(imgs[i % len(imgs)])
+        n += sum(r.status == "ok" for r in eng.run().values())
+    st = eng.stats()
+    print(f"[throughput] {card}: closed loop of 64 queued requests, buckets "
+          f"1/2/4/8: {n} images in {st.wall_s:.3f} s, FPS {st.fps:.1f}, "
+          f"p50 {st.latency_p50_s * 1e3:.3f} ms, p95 "
+          f"{st.latency_p95_s * 1e3:.3f} ms, micro-batches "
+          f"{st.micro_batches}, pad fraction {st.pad_fraction:.3f}")
+    one = VisionEngine.from_artifact(FIXTURE + ".qnet", device="cuda",
+                                     buckets=(1,))
+    one.warmup()
+    for i in range(200):
+        one.submit(imgs[i % len(imgs)])
+        one.run()
+    st = one.stats()
+    print(f"[throughput] {card}: one request at a time, 200 requests: FPS "
+          f"{st.fps:.1f}, p50 {st.latency_p50_s * 1e3:.3f} ms, p95 "
+          f"{st.latency_p95_s * 1e3:.3f} ms")
+    x = torch.from_numpy(imgs).to(eng.device)
+    parts = []
+    for stage in eng.stages:
+        ms = time_ms(lambda s=stage, a=x: s.run(a))
+        parts.append(f"{stage.spec.cu} {ms:.4f}")
+        x = stage.run(x)
+    print(f"[throughput] device ms per stage at batch 8, CUDA events: "
+          f"{'; '.join(parts)}")
+    profile(eng, imgs)
+
+
+def busy_ms(events) -> float:
+    """Length of the union of the device-side intervals (kernels, copies,
+    memsets) among a profile's events, in ms. The CPU ops' rows also carry
+    the device time of what they launched, so adding up every row would
+    count it twice."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == DeviceType.CUDA)
+    total, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        if hi > end:
+            total += hi - max(lo, end)
+            end = hi
+    return total / 1e3
+
+
+def profile(eng, imgs):
+    """Device busy share and the heaviest kernels over 32 micro-batches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    for i in range(256):
+        eng.submit(imgs[i % len(imgs)])
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = [(evt.self_device_time_total / 1e3, evt.count, evt.key)
+           for evt in prof.key_averages()
+           if evt.device_type == DeviceType.CUDA]
+    busy = busy_ms(prof.events())
+    if not dev or busy <= 0:
+        print("[profile] torch.profiler reported no device time: busy share "
+              "not measured")
+        return
+    print(f"[profile] 256 requests, buckets 1/2/4/8, under torch.profiler: "
+          f"wall {wall_ms:.3f} ms, device busy {busy:.3f} ms (union of "
+          f"{sum(n for _, n, _ in dev)} device intervals, which add up to "
+          f"{sum(d for d, _, _ in dev):.3f} ms), busy share "
+          f"{busy / wall_ms:.4f}")
+    for d, n, key in sorted(dev, reverse=True)[:10]:
+        print(f"[profile]   {d:9.3f} ms {n:5d}x  {key[:90]}")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import numpy as np
+
+    from repro_torch.core import cu
+    from repro_torch.core.qnet import load_qnet
+    from repro_torch.kernels import _build
+
+    card = card_line()
+    print(f"[card] {card} | torch {torch.__version__} CUDA "
+          f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise SystemExit("TF32 matmuls are on: f32 accumulation not exact")
+    torch.backends.cudnn.allow_tf32 = False  # the library_ms yardstick
+
+    t0 = time.perf_counter()
+    built = _build.build_all()
+    print(f"[build] {len(built)} of {len(_build.sources())} sources "
+          f"compiled, one nvcc each in parallel: "
+          f"{time.perf_counter() - t0:.1f} s")
+    for name, log in sorted(built.items()):
+        for line in log.splitlines():
+            if "Used" in line or ("spill" in line and " 0 bytes spill" not in
+                                  line):
+                print(f"  {name}: {line.strip()}")
+
+    fix = dict(np.load(FIXTURE + ".npz"))
+    imgs = images()
+    pq = cu.prepare_qnet(load_qnet(FIXTURE + ".qnet"), device="cuda")
+    rows = phase_kernels(pq, torch.from_numpy(imgs).to(pq.device))
+    launches = phase_serve(imgs, fix)  # the served main path's counts
+    phase_throughput(imgs, card)
+
+    kernels = []
+    for name, r in rows.items():
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/"
+                      f"{name.rsplit('_q', 1)[0]}.cu",
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": r["err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound"],
+            "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"]
+            else "operations",
+            "library_ms": r["lib_ms"] if r["has_lib"] else None})
+    print(json.dumps({"kernels": kernels}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

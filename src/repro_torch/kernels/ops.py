@@ -1,0 +1,140 @@
+"""QNet-level wrappers around the hand-written kernels.
+
+Counterpart of `repro/kernels/ops.py`: these adapt a `PreparedQNet`'s
+device-resident constants to the raw kernel signatures. Which CU op takes
+which kernel:
+
+    op kind    kernel (CUDA tensor; plain PyTorch version on the CPU)
+    -------    -----------------------------------------------------
+    PW/DENSE   pointwise_conv.pointwise_conv_q
+    DW         depthwise_conv.depthwise_conv_q
+    IRB        fused_irb.fused_irb_q (the Body CU's expand -> dw -> project)
+    CONV       none: the stem runs as a float64 torch convolution (exact);
+               the SE gate, residual add and avgpool are torch ops too
+
+Every route here uses the reference interpreter's integer zero-point
+correction and residual form, so it is bit-exact with `core/cu.py`.
+`launch_counts()` reads the kernels' launch counters.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.core import cu as _cu
+from repro_torch.core import graph as G
+from repro_torch.kernels.depthwise_conv import depthwise_conv_q
+from repro_torch.kernels.fused_irb import fused_irb_q
+from repro_torch.kernels.pointwise_conv import pointwise_conv_q
+
+KERNELS = (pointwise_conv_q, depthwise_conv_q, fused_irb_q)
+
+
+def launch_counts() -> Dict[str, int]:
+    """{kernel name: launches since the last reset}."""
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def run_pw_qop(x_q: torch.Tensor, pop: _cu.PreparedQOp) -> torch.Tensor:
+    """Pointwise / dense op through the pointwise kernel. Clips to
+    [0, qmax] like the reference epilogue, linear ops included."""
+    return pointwise_conv_q(x_q, pop.w_kern, pop.mult, pop.zpc, pop.bias_q,
+                            qmax=pop.qmax)
+
+
+def run_dw_qop(x_q: torch.Tensor, pop: _cu.PreparedQOp) -> torch.Tensor:
+    """Depthwise op through the depthwise kernel, integer correction form."""
+    return depthwise_conv_q(x_q, pop.w_kern, pop.mult, pop.zpc, pop.bias_q,
+                            kernel=pop.spec.kernel, stride=pop.spec.stride,
+                            qmax=pop.qmax)
+
+
+def fusable_irb(block: G.BlockSpec) -> bool:
+    """True when `block` fits the fused Body-CU kernel: the canonical
+    expand -> dw -> project shape with no squeeze-excitation branch and one
+    activation bit-width (the kernel clips all three stages with a single
+    qmax, so mixed act_bits would requantize wrongly)."""
+    return (
+        len(block.ops) == 3
+        and block.se is None
+        and block.ops[0].kind == G.PW
+        and block.ops[1].kind == G.DW
+        and block.ops[2].kind == G.PW
+        and not block.avgpool
+        and len({op.act_bits for op in block.ops}) == 1
+    )
+
+
+def irb_args(block: G.BlockSpec, pq: _cu.PreparedQNet, in_s: float,
+             in_z: float):
+    """(positional tensors, keyword args, out_s, out_z) of `fused_irb_q`
+    for one fusable block of a prepared net."""
+    q1, q2, q3 = (pq.ops[op.name] for op in block.ops)
+    tensors = (q1.w_kern, q1.mult, q1.zpc, q1.bias_q,
+               q2.w_kern, q2.mult, q2.zpc, q2.bias_q,
+               q3.w_kern, q3.mult, q3.zpc, q3.bias_q)
+    kw = dict(kernel=q2.spec.kernel, stride=q2.spec.stride, qmax=q3.qmax,
+              residual=block.residual)
+    out_s, out_z = q3.out_scale, q3.out_zp
+    if block.residual:
+        y_s, y_z = pq.res_q[block.name]
+        kw["res_q"] = (in_s, in_z, q3.out_scale, q3.out_zp, y_s, y_z)
+        out_s, out_z = y_s, y_z
+    return tensors, kw, out_s, out_z
+
+
+def run_irb_block(x_q: torch.Tensor, block: G.BlockSpec,
+                  pq: _cu.PreparedQNet, in_s: float, in_z: float):
+    """Body-CU invocation: a fusable IRB through the fused kernel.
+    Returns (y_q, out_s, out_z)."""
+    if not fusable_irb(block):
+        raise ValueError(f"{block.name} does not fit the fused-IRB kernel")
+    tensors, kw, out_s, out_z = irb_args(block, pq, in_s, in_z)
+    return fused_irb_q(x_q, *tensors, **kw), out_s, out_z
+
+
+def run_block_kernels(x_q: torch.Tensor, block: G.BlockSpec,
+                      pq: _cu.PreparedQNet, in_s: float, in_z: float):
+    """One block through the per-op kernels (no IRB fusion): DW through the
+    depthwise kernel, PW/DENSE (the SE squeeze included) through the
+    pointwise kernel; the stem CONV, the hsigmoid gate, the residual and the
+    avgpool are `core/cu.py`'s torch ops. Returns (y_q, out_s, out_z)."""
+    y = x_q
+    cur_s, cur_z = in_s, in_z
+    for op in block.ops:
+        pop = pq.ops[op.name]
+        if op.kind == G.DW:
+            y = run_dw_qop(y, pop)
+        elif op.kind in (G.PW, G.DENSE) and op.act != G.HSIGMOID:
+            y = run_pw_qop(y, pop)
+        else:
+            y = _cu.run_qop(y, pop)
+        cur_s, cur_z = pop.out_scale, pop.out_zp
+        if block.se is not None and block.se_after == op.name:
+            y = _cu.se_gate(y, block, pq, run_pw=run_pw_qop)
+    if block.residual:
+        y_s, y_z = pq.res_q[block.name]
+        qmax = 2 ** block.ops[-1].act_bits - 1
+        y = _cu.residual_add(x_q, in_s, in_z, y, cur_s, cur_z, y_s, y_z, qmax)
+        cur_s, cur_z = y_s, y_z
+    if block.avgpool:
+        y = _cu.mean_round(y)
+    return y, cur_s, cur_z
+
+
+__all__ = [
+    "launch_counts",
+    "reset_launch_counts",
+    "run_pw_qop",
+    "run_dw_qop",
+    "fusable_irb",
+    "irb_args",
+    "run_irb_block",
+    "run_block_kernels",
+]

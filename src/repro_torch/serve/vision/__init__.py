@@ -1,0 +1,21 @@
+"""Vision serving: stage compiler, pipelined scheduler, batching engine."""
+from repro_torch.serve.vision.engine import (
+    AdmissionError,
+    EngineStats,
+    RequestResult,
+    VisionEngine,
+    VisionRequest,
+)
+from repro_torch.serve.vision.pipeline import PipelinedExecutor
+from repro_torch.serve.vision.stages import CompiledStage, compile_stages
+
+__all__ = [
+    "AdmissionError",
+    "CompiledStage",
+    "EngineStats",
+    "PipelinedExecutor",
+    "RequestResult",
+    "VisionEngine",
+    "VisionRequest",
+    "compile_stages",
+]

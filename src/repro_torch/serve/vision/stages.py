@@ -1,0 +1,126 @@
+"""Stage compiler: `CUPlan` schedule -> one executor per CU stage.
+
+Counterpart of `repro/serve/vision/stages.py`. Each contiguous run of
+same-role CU invocations (Head, Body, Tail, Classifier) becomes one
+`CompiledStage`: a pure tensor -> tensor map whose quantizer handoff is
+static (`cu.propagate_qparams`), so the chain is bit-exact with the
+monolithic `cu.run_qnet`.
+
+The integer datapath of a stage runs on one of three op implementations:
+
+  * the reference torch ops of `core/cu.py` (`run_block`);
+  * the per-op kernels (`op_kernels`): DW through the depthwise kernel,
+    PW/DENSE through the pointwise kernel, in every stage;
+  * the fused-IRB kernel (`body_fast_path`): each fusable Body block as one
+    kernel that keeps the expanded tensor on chip.
+
+Both flags are "auto" (on when the device is CUDA), "on" or "off". On the
+CPU the kernel wrappers run their plain PyTorch versions, so "on" there
+exercises the same routing with the same bits.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple, Union
+
+import torch
+
+from repro_torch.core import compiler as CC
+from repro_torch.core import cu
+from repro_torch.core import graph as G
+from repro_torch.core.qnet import QNet
+from repro_torch.kernels import ops as K
+
+
+@dataclasses.dataclass(frozen=True)
+class StageSpec:
+    """Everything one CU stage executor needs besides the net's constants."""
+
+    cu: str
+    blocks: Tuple[G.BlockSpec, ...]
+    in_scale: float
+    in_zp: float
+    out_scale: float
+    out_zp: float
+    quantizes_input: bool  # Head: float image -> int activations
+    dequantizes_output: bool  # Classifier: int logits -> float logits
+    signature: CC.StageSignature
+
+
+class CompiledStage:
+    """One CU stage as a callable on tensors of the prepared net's device.
+    `invocations` counts the micro-batches it ran."""
+
+    def __init__(self, spec: StageSpec, pq: cu.PreparedQNet, *,
+                 input_bits: int, fast_path: bool, op_kernels: bool):
+        self.spec = spec
+        self.pq = pq
+        self._input_bits = input_bits
+        self._fast_path = fast_path and spec.cu == CC.BODY
+        self._op_kernels = op_kernels
+        self.invocations = 0
+
+    def run(self, x: torch.Tensor) -> torch.Tensor:
+        """The stage's function, without counting an invocation."""
+        spec, pq = self.spec, self.pq
+        y = x
+        if spec.quantizes_input:
+            y = cu.quantize_input(y, pq.input_scale, spec.in_zp,
+                                  self._input_bits)
+        s, z = spec.in_scale, spec.in_zp
+        for block in spec.blocks:
+            if self._fast_path and K.fusable_irb(block):
+                y, s, z = K.run_irb_block(y, block, pq, s, z)
+            elif self._op_kernels:
+                y, s, z = K.run_block_kernels(y, block, pq, s, z)
+            else:
+                y, s, z = cu.run_block(y, block, pq, s, z)
+        if spec.dequantizes_output:
+            y = cu.dequantize(y, s, z)
+        return y
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        self.invocations += 1
+        return self.run(x)
+
+
+def _resolve(flag: str, name: str, device: torch.device) -> bool:
+    if flag not in ("auto", "on", "off"):
+        raise ValueError(f"{name}={flag!r}")
+    return device.type == "cuda" if flag == "auto" else flag == "on"
+
+
+def compile_stages(
+    qnet: Union[QNet, cu.PreparedQNet],
+    plan: Optional[CC.CUPlan] = None,
+    *,
+    input_bits: int = 8,
+    body_fast_path: str = "auto",
+    op_kernels: str = "auto",
+    device=None,
+) -> List[CompiledStage]:
+    """Lower a CUPlan into the ordered list of stage executors.
+
+    The net is prepared on `device` (CUDA unless the caller passes another;
+    a `PreparedQNet` must already live there)."""
+    pq = cu.prepare_qnet(qnet, input_bits=input_bits, device=device)
+    if plan is None:
+        plan = CC.compile_net(pq.spec)
+    fast = _resolve(body_fast_path, "body_fast_path", pq.device)
+    kerns = _resolve(op_kernels, "op_kernels", pq.device)
+    sigs = plan.stage_signatures()
+    stages: List[CompiledStage] = []
+    s, z = cu.input_qparams(pq)
+    for i, sig in enumerate(sigs):
+        out_s, out_z = cu.propagate_qparams(sig.blocks, pq, s, z)
+        spec = StageSpec(
+            cu=sig.cu, blocks=sig.blocks, in_scale=s, in_zp=z,
+            out_scale=out_s, out_zp=out_z, quantizes_input=(i == 0),
+            dequantizes_output=(i == len(sigs) - 1), signature=sig)
+        stages.append(CompiledStage(spec, pq, input_bits=input_bits,
+                                    fast_path=fast, op_kernels=kerns))
+        s, z = out_s, out_z
+    return stages
+
+
+__all__ = ["StageSpec", "CompiledStage", "compile_stages"]

@@ -1,0 +1,143 @@
+"""Full-width MobileNetV2 (alpha 1.0, 224x224x3, 1000 classes, act8) through
+the PyTorch port, against the JAX package's `cu.run_qnet` logits.
+
+The fixture `tests/golden_torch/mobilenet_v2_alpha1_224_act8.{qnet,npz}`
+freezes the quantized net and the JAX reference's answers on 8 images:
+
+  * `logits` [8, 1000] float32 — `repro.core.cu.run_qnet` on the images,
+  * `stage_sha256` [n_stages, 8] — sha256 of each image's uint8 CU-stage
+    output (`cu.run_blocks` per stage), so a mismatch names the first stage
+    that differs, and `stage_names` [n_stages].
+
+The images are not stored: both sides regenerate them from the seed
+(`images()`). Regenerate the fixture with the JAX package:
+
+    PYTHONPATH=src python -m tests.test_torch_fullwidth --regen
+
+At this size the JAX fused-IRB formula drifts from `run_qnet` (ROADMAP F4),
+so the CPU test below, which runs the port's plain fused-IRB version on all
+16 Body blocks, is what shows the port's fused form keeps `run_qnet`'s bits.
+"""
+from __future__ import annotations
+
+import hashlib
+import os
+
+import numpy as np
+import pytest
+import torch
+
+FIXTURE_DIR = os.path.join(os.path.dirname(__file__), "golden_torch")
+BASE = os.path.join(FIXTURE_DIR, "mobilenet_v2_alpha1_224_act8")
+QNET_PATH, NPZ_PATH = BASE + ".qnet", BASE + ".npz"
+BUILD = {"model": "mobilenet_v2", "alpha": 1.0, "input_hw": 224, "bits": 8,
+         "num_classes": 1000}
+N_IMAGES = 8
+
+
+def images() -> np.ndarray:
+    """The fixture's 8 input images, [8, 224, 224, 3] float32 in [-1, 1]."""
+    return np.random.default_rng(0).uniform(
+        -1, 1, (N_IMAGES, 224, 224, 3)).astype(np.float32)
+
+
+def stage_digests(act: np.ndarray) -> list:
+    """sha256 of each image's stage output, taken over its uint8 bytes."""
+    u8 = np.ascontiguousarray(np.asarray(act).astype(np.uint8))
+    return [hashlib.sha256(row.tobytes()).hexdigest() for row in u8]
+
+
+def regen() -> None:
+    """Build, calibrate and quantize the net with the JAX package, freeze it,
+    and store the reference's logits and per-stage digests."""
+    import jax.numpy as jnp
+
+    from repro.core import compiler as CC, cu, qnet as Q
+    from repro.models import mobilenet_v2 as mnv2
+    from repro.models.layers import make_calibrated_qnet
+
+    net = mnv2.build(alpha=1.0, input_hw=224, bits=8)
+    qnet = make_calibrated_qnet(net, bits=8, seed=0)
+    os.makedirs(FIXTURE_DIR, exist_ok=True)
+    Q.save_qnet(qnet, QNET_PATH, build=BUILD,
+                provenance={"derivation": "make_calibrated_qnet", "seed": 0,
+                            "n_cal": 2})
+    qnet = Q.load_qnet(QNET_PATH)  # answers come from the frozen artifact
+    x = jnp.asarray(images())
+    logits = np.asarray(cu.run_qnet(qnet, x), np.float32)
+    sigs = CC.compile_net(qnet.spec).stage_signatures()
+    s, z = cu.input_qparams(qnet)
+    y = cu.quantize_input(x, s, z, 8)
+    names, digests = [], []
+    for sig in sigs:
+        y, s, z = cu.run_blocks(y, sig.blocks, qnet, s, z)
+        act = np.asarray(y)
+        assert act.min() >= 0 and act.max() <= 255, sig.cu
+        names.append(sig.cu)
+        digests.append(stage_digests(act))
+    walked = (np.asarray(y, np.float32) + np.float32(z)) * np.float32(s)
+    assert np.array_equal(walked, logits), "stage walk != run_qnet"
+    np.savez_compressed(NPZ_PATH, logits=logits,
+                        stage_names=np.asarray(names),
+                        stage_sha256=np.asarray(digests))
+    size = (os.path.getsize(QNET_PATH) + os.path.getsize(NPZ_PATH)) / 2**20
+    print(f"[fullwidth] {len(names)} stages, {size:.1f} MiB -> {BASE}.*")
+
+
+# ---------------------------------------------------------------------------
+# tests (the port only: the fixture holds the reference's answers)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def fixture():
+    fix = np.load(NPZ_PATH)
+    return {k: fix[k] for k in fix.files}
+
+
+@pytest.fixture(scope="module")
+def image0():
+    return images()[:1]
+
+
+def test_fullwidth_run_qnet_equals_reference_logits(fixture, image0):
+    """The port's reference interpreter, image 0: logits and every stage
+    digest equal the JAX package's."""
+    from repro_torch.core import compiler as CC, cu, qnet as Q
+
+    pq = cu.prepare_qnet(Q.load_qnet(QNET_PATH), device="cpu")
+    np.testing.assert_array_equal(
+        cu.run_qnet(pq, image0).numpy(), fixture["logits"][:1])
+    s, z = cu.input_qparams(pq)
+    y = cu.quantize_input(torch.from_numpy(image0), pq.input_scale, z)
+    for i, sig in enumerate(CC.compile_net(pq.spec).stage_signatures()):
+        y, s, z = cu.run_blocks(y, sig.blocks, pq, s, z)
+        assert stage_digests(y.numpy()) == [fixture["stage_sha256"][i][0]], \
+            f"stage {i} ({sig.cu}) differs"
+
+
+def test_fullwidth_engine_fused_body_equals_reference_logits(fixture, image0):
+    """The served route on the CPU: all 16 Body blocks through the plain
+    fused-IRB version, Head/Tail/Classifier through the plain per-op
+    kernels. Equal to `run_qnet` bit for bit, where the JAX fused formula
+    is not (F4)."""
+    from repro_torch.kernels import ops as K
+    from repro_torch.serve.vision import VisionEngine
+
+    eng = VisionEngine.from_artifact(QNET_PATH, device="cpu", buckets=(1,),
+                                     body_fast_path="on", op_kernels="on")
+    body = [st for st in eng.stages if st.spec.cu == "body"][0]
+    assert sum(K.fusable_irb(b) for b in body.spec.blocks) == 16
+    rid = eng.submit(image0[0])
+    res = eng.run()
+    np.testing.assert_array_equal(res[rid].logits, fixture["logits"][0])
+
+
+if __name__ == "__main__":
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--regen", action="store_true",
+                    help="rewrite the fixture with the JAX package")
+    if ap.parse_args().regen:
+        regen()

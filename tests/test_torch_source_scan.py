@@ -1,0 +1,59 @@
+"""The port stands alone: no file of `src/repro_torch/`, nor
+`chip_smoke.py`, imports JAX or the JAX package, and every entry point
+called without `device=` on a machine without CUDA raises instead of
+running on the CPU."""
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import cu, qnet as Q
+from repro_torch.serve.vision import VisionEngine, compile_stages
+from tests.regen_golden import fixture_paths
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = {"jax", "jaxlib", "repro"}
+
+
+def _imported_roots(path: pathlib.Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, (node.module or "").split(".")[0]
+
+
+def test_port_files_found():
+    assert len(PORT_FILES) > 15
+    assert ROOT / "src" / "repro_torch" / "kernels" / "ops.py" in PORT_FILES
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_import(path):
+    bad = [(line, mod) for line, mod in _imported_roots(path)
+           if mod in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("entry", ["prepare_qnet", "run_qnet",
+                                   "compile_stages", "VisionEngine",
+                                   "VisionEngine.from_artifact"])
+def test_entry_points_refuse_to_run_without_cuda(entry, monkeypatch):
+    path = fixture_paths("mobilenet_v2", 8)[0]
+    qnet = Q.load_qnet(path)
+    x = np.zeros((1, 32, 32, 3), np.float32)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    call = {"prepare_qnet": lambda: cu.prepare_qnet(qnet),
+            "run_qnet": lambda: cu.run_qnet(qnet, x),
+            "compile_stages": lambda: compile_stages(qnet),
+            "VisionEngine": lambda: VisionEngine(qnet),
+            "VisionEngine.from_artifact":
+                lambda: VisionEngine.from_artifact(path)}[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
