@@ -28,7 +28,24 @@ last line:
      time loop, with FPS and p50/p95 latency, per-stage device times, and a
      short torch.profiler window (device busy share: the union of the
      device-side kernel and copy intervals over the wall time; top kernels);
-  6. the kernels' JSON line, the card line, and
+  6. lm: the LM operator entry points at Llama-3.2-1B widths (read from
+     `repro_torch.configs.llama32_1b`), inputs made with numpy from the
+     seeds of `tests/torch_lm_cases.py`. `ops.quantized_linear` runs the 7
+     linears of one decoder layer and the tied lm_head at W8 per channel,
+     W4 per channel and W4 in groups of 128, for 8 rows in f32 and bf16 and
+     512 rows in bf16; `ops.decode_attend` runs batch 8 over a 4096-position
+     cache, int8 (from `kv_quant`) at kv_len 4096 and 3001, bf16 at 3001.
+     The launch counters are set to 0 just before and read just after.
+     Each output is then held against the kernel's plain version on the same
+     inputs (the JAX tests' tolerances: quantized matmul rtol 1e-5 / atol
+     1e-3 in f32 and 2e-2 / 2e-1 in bf16, decode attention 1e-5 / 1e-5) and,
+     where the JAX entry points wrote one, against the golden
+     `tests/golden_torch/llama32_1b_lm_ops.npz` at the same tolerances. Each
+     case prints its time, the plain version's, one library call's
+     (`torch.matmul` on the dequantized weight; `scaled_dot_product_attention`
+     on the dequantized cache), and its bound (bytes at 3.35 TB/s or flops
+     at the 989 TFLOP/s dense bf16 peak);
+  7. the kernels' JSON line, the card line, and
      {"ok": true, "device": {"platform": "gpu", ...}} as the last line.
 
 Imports nothing of JAX or of the JAX package.
@@ -48,13 +65,30 @@ FIXTURE = os.path.join(ROOT, "tests", "golden_torch",
                        "mobilenet_v2_alpha1_224_act8")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core peak, same source
-REPLACES = {
-    "pointwise_conv_q": "src/repro/kernels/pointwise_conv.py:109",
-    "depthwise_conv_q": "src/repro/kernels/depthwise_conv.py:126",
-    "fused_irb_q": "src/repro/kernels/fused_irb.py:163",
+BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak, same source
+CSRC = "src/repro_torch/kernels/csrc/"
+# kernel: (its source, the TPU kernel it replaces)
+KERNELS = {
+    "pointwise_conv_q": (CSRC + "pointwise_conv.cu",
+                         "src/repro/kernels/pointwise_conv.py:109"),
+    "depthwise_conv_q": (CSRC + "depthwise_conv.cu",
+                         "src/repro/kernels/depthwise_conv.py:126"),
+    "fused_irb_q": (CSRC + "fused_irb.cu",
+                    "src/repro/kernels/fused_irb.py:163"),
+    "quant_matmul": (CSRC + "quant_matmul.cu",
+                     "src/repro/kernels/quant_matmul.py:74"),
+    "decode_attention": (CSRC + "decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:104"),
 }
 EXPECTED_LAUNCHES = {"pointwise_conv_q": 3, "depthwise_conv_q": 1,
-                     "fused_irb_q": 16}
+                     "fused_irb_q": 16, "quant_matmul": 0,
+                     "decode_attention": 0}
+LM_GOLDEN = os.path.join(ROOT, "tests", "golden_torch",
+                         "llama32_1b_lm_ops.npz")
+# (rtol, atol) of the JAX tests (test_kernels_quant_matmul.py:33, :48;
+# test_kernels_decode_attention.py:38): the sums run in another order
+QMM_TOL = {"float32": (1e-5, 1e-3), "bfloat16": (2e-2, 2e-1)}
+ATTN_TOL = (1e-5, 1e-5)
 REPS = 25
 
 
@@ -210,18 +244,7 @@ def phase_kernels(pq, x):
               f"bound_ms={max(bytes_ms, ops_ms):.5f} "
               f"({'bytes' if bytes_ms >= ops_ms else 'operations'}; "
               f"int32 activations: {max(bytes32_ms, ops_ms):.5f})")
-        r = rows.setdefault(name, dict(err=0, ms=0.0, plain_ms=0.0,
-                                       lib_ms=0.0, has_lib=True,
-                                       bytes_ms=0.0, ops_ms=0.0, bound=0.0,
-                                       bound32=0.0))
-        r["err"] = max(r["err"], err)
-        r["ms"] += ms
-        r["plain_ms"] += plain_ms
-        r["has_lib"] &= lib_ms is not None
-        r["lib_ms"] += lib_ms or 0.0
-        r["bytes_ms"] += bytes_ms
-        r["ops_ms"] += ops_ms
-        r["bound"] += max(bytes_ms, ops_ms)
+        r = _row(rows, name, err, ms, plain_ms, lib_ms, bytes_ms, ops_ms)
         r["bound32"] += max(bytes32_ms, ops_ms)
     for name, r in rows.items():
         print(f"[kernels] {name}: ms {r['ms']:.4f} over the micro-batch, "
@@ -315,6 +338,204 @@ def phase_throughput(imgs, card):
     profile(eng, imgs)
 
 
+def lm_cases():
+    """`tests/torch_lm_cases.py`, loaded by its path: a `tests` package
+    installed elsewhere may shadow the repo's."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_lm_cases", os.path.join(ROOT, "tests", "torch_lm_cases.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def lm_inputs(cfg, dev):
+    """The [lm] phase's cases on the card: (linears, decodes). A linear is
+    (label, x [M, K], w_q, scale, bits, golden key or None); a decode is
+    (label, q [B, 1, H, dh], cache dict, kv_len as a 0-dim int32 tensor,
+    golden key). Weights are quantized on the card by the port's
+    `quantize_weight_for_matmul`, the int8 cache by its `kv_quant`."""
+    import torch
+
+    from repro_torch.kernels import ops as K
+    from repro_torch.models.lm.common import kv_quant
+
+    C = lm_cases()
+    linears = []
+    for name, k, n in C.layer_linears(cfg):
+        w = torch.from_numpy(C.weight(name, k, n)).to(dev)
+        x8 = torch.from_numpy(C.activations(name, 8, k)).to(dev)
+        xs = {"8xf32": x8, "8xbf16": x8.to(torch.bfloat16),
+              "512xbf16": torch.from_numpy(
+                  C.activations(name, 512, k)).to(dev, torch.bfloat16)}
+        for scheme, (bits, group) in C.SCHEMES.items():
+            wq, sc = K.quantize_weight_for_matmul(w, bits=bits,
+                                                  group_size=group)
+            for xname, x in xs.items():
+                key = f"linear/{scheme}/{name}"
+                gold = key if (xname == "8xf32" and name != "lm_head"
+                               and scheme in C.GOLDEN_SCHEMES) else None
+                linears.append((f"{name}/{scheme}/{xname}", x, wq, sc, bits,
+                                gold))
+        del w
+    q, k, v = (torch.from_numpy(a).to(dev) for a in C.decode_inputs(cfg))
+    (k8, ks), (v8, vs) = kv_quant(k), kv_quant(v)
+    caches = {True: {"k": k8, "v": v8, "k_scale": ks, "v_scale": vs},
+              False: {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}}
+    decodes = [(case, q, caches[quant],
+                torch.tensor(kv_len, dtype=torch.int32, device=dev),
+                f"decode/{case}") for case, quant, kv_len in C.DECODE_CASES]
+    return linears, decodes
+
+
+def _row(rows, name, err, ms, plain_ms, lib_ms, bytes_ms, ops_ms):
+    r = rows.setdefault(name, dict(err=0, ms=0.0, plain_ms=0.0, lib_ms=0.0,
+                                   has_lib=True, bytes_ms=0.0, ops_ms=0.0,
+                                   bound=0.0, bound32=0.0))
+    r["err"] = max(r["err"], err)
+    r["ms"] += ms
+    r["plain_ms"] += plain_ms
+    r["has_lib"] &= lib_ms is not None
+    r["lib_ms"] += lib_ms or 0.0
+    r["bytes_ms"] += bytes_ms
+    r["ops_ms"] += ops_ms
+    r["bound"] += max(bytes_ms, ops_ms)
+    return r
+
+
+def _close(got, want, rtol, atol):
+    """(max |got - want| in f32, within rtol/atol)."""
+    import torch
+    g, w = got.float(), want.float()
+    return (float((g - w).abs().max()),
+            g.shape == w.shape and bool(torch.allclose(g, w, rtol=rtol,
+                                                       atol=atol)))
+
+
+def phase_lm(card):
+    """Drive the LM entry points once at Llama-3.2-1B widths, then hold
+    every output against the plain version and the golden, and time it."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import llama32_1b
+    from repro_torch.kernels import ops as K
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_plain)
+    from repro_torch.kernels.quant_matmul import (
+        dequantize, quant_matmul, quant_matmul_plain)
+
+    cfg = llama32_1b.get_config()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    t0 = time.perf_counter()
+    linears, decodes = lm_inputs(cfg, dev)
+    torch.cuda.synchronize()
+    print(f"[lm] {cfg.name}: d_model {cfg.d_model}, {cfg.n_heads} heads, "
+          f"{cfg.n_kv_heads} kv heads, head_dim {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}; {len(linears)} linears and "
+          f"{len(decodes)} decode-attention cases built in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    K.reset_launch_counts()
+    outs = [K.quantized_linear(x, wq, sc, bits=bits)
+            for _, x, wq, sc, bits, _ in linears]
+    douts = [K.decode_attend(q, cache, n) for _, q, cache, n, _ in decodes]
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    want = {name: 0 for name in counts}
+    want.update(quant_matmul=len(linears), decode_attention=len(decodes))
+    print(f"[lm] launch counts of the entry points' run: {counts}")
+    if counts != want:
+        raise SystemExit(f"[lm] launches {counts} != expected {want}")
+
+    golden = dict(np.load(LM_GOLDEN))
+    rows, bad, layer = {}, [], {}
+    print(f"[lm] {card}: each case against the plain version and the "
+          f"golden; ms = median of {REPS} (CUDA events); bound: bytes at "
+          f"3.35 TB/s, flops at the 989 TFLOP/s dense bf16 peak")
+    for (label, x, wq, sc, bits, gold), y in zip(linears, outs):
+        dtype = str(x.dtype).split(".")[1]
+        rtol, atol = QMM_TOL[dtype]
+        err, ok = _close(y, quant_matmul_plain(x, wq, sc, bits=bits).to(
+            x.dtype), rtol, atol)
+        gtxt = "-"
+        if gold is not None:
+            gerr, gok = _close(y, torch.from_numpy(golden[gold]).to(dev),
+                               rtol, atol)
+            gtxt = f"{gerr:.3g}"
+            ok &= gok
+        if not ok:
+            bad.append(f"quant_matmul[{label}]")
+        wdq, xf = dequantize(wq, sc, bits=bits), x.float()
+        ms = time_ms(lambda: quant_matmul(x, wq, sc, bits=bits))
+        plain_ms = time_ms(lambda: quant_matmul_plain(x, wq, sc, bits=bits))
+        lib_ms = time_ms(lambda: torch.matmul(xf, wdq))
+        del wdq, xf
+        (m, k), n = x.shape, y.shape[1]
+        bytes_ms = (nbytes(x, wq, sc) + 4 * m * n) / HBM_BYTES_PER_S * 1e3
+        ops_ms = 2 * m * k * n / BF16_FLOPS_PER_S * 1e3
+        _row(rows, "quant_matmul", err, ms, plain_ms, lib_ms, bytes_ms,
+             ops_ms)
+        name, how = label.split("/", 1)
+        if name != "lm_head":
+            _row(layer, how, err, ms, plain_ms, lib_ms, bytes_ms, ops_ms)
+        print(f"  quant_matmul[{label}] ({m},{k})x({k},{n}) "
+              f"max_abs_err={err:.3g} golden_err={gtxt} ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+              f"bound_ms={max(bytes_ms, ops_ms):.5f} "
+              f"({'bytes' if bytes_ms >= ops_ms else 'operations'})")
+    for (label, q, cache, kv_len, gold), y in zip(decodes, douts):
+        b, _, h, dh = q.shape
+        kv = cache["k"].shape[2]
+        qg = q.reshape(b, kv, h // kv, dh)
+        args = (qg, cache["k"], cache["v"], kv_len, cache.get("k_scale"),
+                cache.get("v_scale"))
+        err, ok = _close(y.reshape(qg.shape), decode_attention_plain(*args),
+                         *ATTN_TOL)
+        gerr, gok = _close(y, torch.from_numpy(golden[gold]).to(dev),
+                           *ATTN_TOL)
+        if not (ok and gok):
+            bad.append(f"decode_attention[{label}]")
+        n = min(int(kv_len), cache["k"].shape[1])  # positions attended
+        kd, vd = (c.float() for c in (cache["k"], cache["v"]))
+        if "k_scale" in cache:
+            kd = kd * cache["k_scale"].float()[..., None]
+            vd = vd * cache["v_scale"].float()[..., None]
+        kd, vd = (t.permute(0, 2, 1, 3).contiguous() for t in (kd, vd))
+        qs = q.reshape(b, h, 1, dh)
+        mask = (torch.arange(kd.shape[2], device=dev) < n)[None, None, None]
+        ms = time_ms(lambda: decode_attention(*args))
+        plain_ms = time_ms(lambda: decode_attention_plain(*args))
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qs, kd, vd, attn_mask=mask, enable_gqa=True))
+        del kd, vd
+        per_pos = b * kv * dh * cache["k"].element_size() * 2 + (
+            b * kv * 2 * cache["k_scale"].element_size()
+            if "k_scale" in cache else 0)
+        bytes_ms = (2 * nbytes(q) + n * per_pos) / HBM_BYTES_PER_S * 1e3
+        ops_ms = 4 * b * h * n * dh / BF16_FLOPS_PER_S * 1e3
+        _row(rows, "decode_attention", err, ms, plain_ms, lib_ms, bytes_ms,
+             ops_ms)
+        print(f"  decode_attention[{label}] q {tuple(q.shape)} cache "
+              f"{tuple(cache['k'].shape)} {cache['k'].dtype} kv_len {n} "
+              f"max_abs_err={err:.3g} golden_err={gerr:.3g} ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+              f"bound_ms={max(bytes_ms, ops_ms):.5f} "
+              f"({'bytes' if bytes_ms >= ops_ms else 'operations'})")
+    for how, r in layer.items():
+        print(f"[lm] one decoder layer's 7 linears, {how}: ms {r['ms']:.4f}, "
+              f"bound_ms {r['bound']:.5f}, plain_ms {r['plain_ms']:.4f}, "
+              f"library_ms {r['lib_ms']:.4f}")
+    for name, r in rows.items():
+        print(f"[lm] {name}: ms {r['ms']:.4f} over its "
+              f"{counts[name]} cases, bound_ms {r['bound']:.5f}, plain_ms "
+              f"{r['plain_ms']:.4f}, library_ms {r['lib_ms']:.4f}")
+    if bad:
+        raise SystemExit(f"[lm] out of tolerance: {', '.join(bad)}")
+    return rows, counts
+
+
 def busy_ms(events) -> float:
     """Length of the union of the device-side intervals (kernels, copies,
     memsets) among a profile's events, in ms. The CPU ops' rows also carry
@@ -401,14 +622,16 @@ def main() -> int:
     rows = phase_kernels(pq, torch.from_numpy(imgs).to(pq.device))
     launches = phase_serve(imgs, fix)  # the served main path's counts
     phase_throughput(imgs, card)
+    lm_rows, lm_launches = phase_lm(card)  # the LM entry points' counts
+    rows.update(lm_rows)
+    launches.update({name: lm_launches[name] for name in lm_rows})
 
     kernels = []
     for name, r in rows.items():
+        source, replaces = KERNELS[name]
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/"
-                      f"{name.rsplit('_q', 1)[0]}.cu",
-            "replaces": REPLACES[name], "launches": launches[name],
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
             "max_abs_err": r["err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"],
             "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"]

@@ -1,17 +1,24 @@
-"""Hand a QNet from the JAX package to the port, field by field.
+"""Hand parameters from the JAX package to the port.
 
 `qnet_from_reference` takes the JAX package's in-memory `QNet` (its spec
 dataclasses, numpy arrays and floats) and rebuilds it with the port's own
 dataclasses, so both sides compute from identical parameters. It reads the
 object by attribute only and imports nothing of the JAX package.
+
+`lm_from_reference` carries LM tensors across: a quantized linear (the
+`{"w_q", "scale"}` dict `init_linear` builds, or the `(w_q, scale)` tuple
+of `quantize_weight_for_matmul`) or a KV cache (`{"k", "v"[, "k_scale",
+"v_scale"]}`), as arrays, onto a device.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.core import graph as G
+from repro_torch.core.cu import resolve_device
 from repro_torch.core.qnet import QNet, QOp
 
 
@@ -56,4 +63,41 @@ def qnet_from_reference(ref_qnet) -> QNet:
     return QNet(spec, ops, res_q)
 
 
-__all__ = ["qnet_from_reference", "netspec_from_reference"]
+def _tensor(a, device: torch.device) -> torch.Tensor:
+    """An array (numpy, or anything `np.asarray` takes) as a tensor with the
+    same values and type. numpy has no bfloat16 of its own: JAX's bf16
+    arrays come out as `ml_dtypes.bfloat16`, which `torch.from_numpy`
+    refuses, so they go through float32 (exact) and back to bfloat16."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)  # a writable copy
+
+
+_LINEAR_KEYS = {"w_q", "scale"}
+_KV_KEYS = {"k", "v", "k_scale", "v_scale"}
+
+
+def lm_from_reference(src, device=None):
+    """The port's tensors for a quantized linear or a KV cache of the JAX
+    LM, on `device` (CUDA unless the caller names another):
+
+      * `{"w_q", "scale"}` -> the same dict of tensors;
+      * `(w_q, scale)` -> the same tuple of tensors;
+      * `{"k", "v"[, "k_scale", "v_scale"]}` -> the same dict of tensors.
+    """
+    dev = resolve_device(device)
+    if isinstance(src, tuple) and len(src) == 2:
+        return tuple(_tensor(a, dev) for a in src)
+    if isinstance(src, dict):
+        keys = set(src)
+        if keys == _LINEAR_KEYS or keys in ({"k", "v"}, _KV_KEYS):
+            return {k: _tensor(a, dev) for k, a in src.items()}
+    raise ValueError("expected {'w_q', 'scale'}, (w_q, scale) or "
+                     "{'k', 'v'[, 'k_scale', 'v_scale']}, got "
+                     f"{sorted(src) if isinstance(src, dict) else type(src)}")
+
+
+__all__ = ["qnet_from_reference", "netspec_from_reference",
+           "lm_from_reference"]

@@ -14,21 +14,33 @@ which kernel:
 
 Every route here uses the reference interpreter's integer zero-point
 correction and residual form, so it is bit-exact with `core/cu.py`.
+
+The LM entry points, as in the JAX package: `quantize_weight_for_matmul`
+and `quantized_linear` (weight-only W8/W4 linear through
+`quant_matmul.quant_matmul`) and `decode_attend` (grouped decode attention
+over a KV-cache dict through `decode_attention.decode_attention`). No
+model calls them yet: the JAX LM computes its linears and attention in
+plain jnp, and so will the port's.
+
 `launch_counts()` reads the kernels' launch counters.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from repro_torch.core import cu as _cu
 from repro_torch.core import graph as G
+from repro_torch.core.quant import pack_int4, symmetric_range
+from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.depthwise_conv import depthwise_conv_q
 from repro_torch.kernels.fused_irb import fused_irb_q
 from repro_torch.kernels.pointwise_conv import pointwise_conv_q
+from repro_torch.kernels.quant_matmul import quant_matmul
 
-KERNELS = (pointwise_conv_q, depthwise_conv_q, fused_irb_q)
+KERNELS = (pointwise_conv_q, depthwise_conv_q, fused_irb_q, quant_matmul,
+           decode_attention)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -128,7 +140,63 @@ def run_block_kernels(x_q: torch.Tensor, block: G.BlockSpec,
     return y, cur_s, cur_z
 
 
+# ---------------------------------------------------------------------------
+# LM-side weight-only quantized linear (per-channel / grouped, BW in {4, 8})
+# and grouped decode attention
+# ---------------------------------------------------------------------------
+
+
+def quantize_weight_for_matmul(w: torch.Tensor, bits: int = 4,
+                               group_size: Optional[int] = None):
+    """[K, N] float -> (w_q, scales [G, N]), symmetric per (k-group, out
+    column): scale = amax / qmax (1 where amax is 0), w_q = clip(round(w /
+    scale)) in [-qmax, qmax], int8 [K, N] at 8 bits or packed uint8
+    [K, N/2] at 4. The same bits as the JAX function: true division, round
+    half to even, in w's dtype."""
+    k, n = w.shape
+    group_size = k if group_size is None else group_size
+    qmin, qmax = symmetric_range(bits)
+    wg = w.reshape(k // group_size, group_size, n)
+    amax = wg.abs().amax(dim=1)
+    # a 0-dim device tensor: PyTorch's CUDA division by a host scalar
+    # multiplies by its reciprocal, which can round differently
+    qmax_t = torch.full((), qmax, dtype=w.dtype, device=w.device)
+    scale = torch.where(amax > 0, amax / qmax_t, 1.0)
+    q = torch.clamp(torch.round(wg / scale[:, None, :]), qmin, qmax)
+    q = q.reshape(k, n).to(torch.int32)
+    if bits == 4:
+        return pack_int4(q), scale
+    return q.to(torch.int8), scale
+
+
+def quantized_linear(x: torch.Tensor, w_q: torch.Tensor,
+                     w_scale: torch.Tensor, bits: int = 4) -> torch.Tensor:
+    """y = x @ dequant(w_q), x [..., K] -> [..., N] in x's dtype, through
+    the quantized-matmul kernel (f32 inside)."""
+    lead, k = x.shape[:-1], x.shape[-1]
+    y = quant_matmul(x.reshape(-1, k).contiguous(), w_q, w_scale, bits=bits)
+    return y.reshape(*lead, y.shape[-1]).to(x.dtype)
+
+
+def decode_attend(q: torch.Tensor, kv_cache: Dict[str, torch.Tensor],
+                  kv_len) -> torch.Tensor:
+    """Flash-decode attention over a model KV-cache dict.
+
+    q: [B, 1, H, dh] (one new token); kv_cache: {"k", "v"[, "k_scale",
+    "v_scale"]} with k/v [B, S, KV, dh]; query head h = g * rep + r reads kv
+    head g. Returns [B, 1, H, dh]."""
+    b, _, h, dh = q.shape
+    kv = kv_cache["k"].shape[2]
+    qg = q.reshape(b, kv, h // kv, dh).contiguous()
+    out = decode_attention(qg, kv_cache["k"], kv_cache["v"], kv_len,
+                           kv_cache.get("k_scale"), kv_cache.get("v_scale"))
+    return out.reshape(b, 1, h, dh)
+
+
 __all__ = [
+    "quantize_weight_for_matmul",
+    "quantized_linear",
+    "decode_attend",
     "launch_counts",
     "reset_launch_counts",
     "run_pw_qop",

@@ -1,8 +1,12 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 over geometries the main path does not reach (odd sizes, 5x5, stride 2,
 nonzero zero points, residual, ragged tiles, every pointwise tile), and the
-served golden route on the card. Exact equality everywhere. Imports no
-JAX: the machine with the card need not have it.
+served golden route on the card. Exact equality for the integer kernels.
+The float LM kernels sum in another order than their plain versions: the
+quantized matmul is held at rtol 1e-5 / atol 1e-3 and decode attention at
+rtol 1e-5 / atol 1e-5, the JAX tests' tolerances (bf16 outputs: one bf16
+rounding apart). Imports no JAX: the machine with the card need not have
+it.
 
 Marked `cuda`: they skip where there is no card. On a machine with one:
 
@@ -15,6 +19,10 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops as K
+from repro_torch.kernels.decode_attention import (
+    decode_attention,
+    decode_attention_plain,
+)
 from repro_torch.kernels.depthwise_conv import (
     depthwise_conv_q,
     depthwise_conv_q_plain,
@@ -27,6 +35,8 @@ from repro_torch.kernels.pointwise_conv import (
     pointwise_conv_q,
     pointwise_conv_q_plain,
 )
+from repro_torch.kernels.quant_matmul import quant_matmul, quant_matmul_plain
+from repro_torch.models.lm.common import kv_quant
 from repro_torch.serve.vision import VisionEngine
 
 pytestmark = pytest.mark.cuda
@@ -141,6 +151,148 @@ def test_served_golden_on_card(dev, model, bits):
     if model == "mobilenet_v2":
         assert K.launch_counts() == {"pointwise_conv_q": 3,
                                      "depthwise_conv_q": 1,
-                                     "fused_irb_q": 16}
+                                     "fused_irb_q": 16, "quant_matmul": 0,
+                                     "decode_attention": 0}
     np.testing.assert_array_equal(np.stack([res[r].logits for r in rids]),
                                   fix["logits"])
+
+
+# ---------------------------------------------------------------------------
+# LM kernels: quantized matmul (K5) and decode attention (K6)
+# ---------------------------------------------------------------------------
+
+QMM_TOL = dict(rtol=1e-5, atol=1e-3)
+ATTN_TOL = dict(rtol=1e-5, atol=1e-5)
+BF16_OUT_TOL = dict(rtol=2**-7, atol=1e-5)  # one bf16 rounding apart
+
+
+def _normal(rng, shape, dev, dtype=torch.float32):
+    return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(
+        device=dev, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 7, 8, 33])
+@pytest.mark.parametrize("n", [24, 512])
+@pytest.mark.parametrize("k,group", [(256, None), (256, 128), (136, 8)])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quant_matmul(dev, bits, k, group, n, m, dtype):
+    """Ragged M, N and K (136 = 4 tiles of 32 and 8), scale groups that
+    straddle the kernel's K tile; bf16 x comes with bf16 scales."""
+    rng = np.random.default_rng(10)
+    w = _normal(rng, (k, n), dev) * k ** -0.5
+    wq, sc = K.quantize_weight_for_matmul(w, bits=bits, group_size=group)
+    x = _normal(rng, (m, k), dev, dtype)
+    sc = sc.to(dtype)
+    got = quant_matmul(x, wq, sc, bits=bits)
+    want = quant_matmul_plain(x, wq, sc, bits=bits)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    torch.testing.assert_close(got, want, **QMM_TOL)
+
+
+def test_quant_matmul_f32_x_bf16_scales(dev):
+    """`init_linear`'s layout: f32 activations, bf16 scales [1, N]."""
+    rng = np.random.default_rng(11)
+    wq = torch.from_numpy(rng.integers(-127, 128, (300, 70)).astype(
+        np.int8)).to(dev)
+    sc = (torch.rand(1, 70, device=dev) * 0.01).to(torch.bfloat16)
+    x = _normal(rng, (5, 300), dev)
+    torch.testing.assert_close(quant_matmul(x, wq, sc, bits=8),
+                               quant_matmul_plain(x, wq, sc, bits=8),
+                               **QMM_TOL)
+
+
+def _cache(rng, dev, b, s, kv, dh, kind):
+    k, v = _normal(rng, (b, s, kv, dh), dev), _normal(rng, (b, s, kv, dh), dev)
+    if kind.startswith("int8"):
+        (k, ks), (v, vs) = kv_quant(k), kv_quant(v)
+        if kind == "int8_f32":
+            ks, vs = ks.float(), vs.float()
+        return k, v, ks, vs
+    dtype = torch.bfloat16 if kind == "bf16" else torch.float32
+    return k.to(dtype), v.to(dtype), None, None
+
+
+@pytest.mark.parametrize("kind", ["int8", "int8_f32", "bf16", "f32"])
+@pytest.mark.parametrize("rep,dh", [(1, 32), (4, 64), (8, 128)])
+@pytest.mark.parametrize("s,vlen", [(64, 64), (100, 37), (300, 300),
+                                    (300, 129)])
+def test_decode_attention(dev, kind, rep, dh, s, vlen):
+    """S not a multiple of the kernel's 64-position tile; rep 8 x dh 128
+    needs more than 48 KB of shared memory; kv_len as an int and as a
+    0-dim device tensor."""
+    rng = np.random.default_rng(12)
+    b, kv = 2, 3
+    q = _normal(rng, (b, kv, rep, dh), dev)
+    k, v, ks, vs = _cache(rng, dev, b, s, kv, dh, kind)
+    want = decode_attention_plain(q, k, v, vlen, ks, vs)
+    got = decode_attention(q, k, v, vlen, ks, vs)
+    got_t = decode_attention(q, k, v, torch.tensor(vlen, dtype=torch.int32,
+                                                   device=dev), ks, vs)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **ATTN_TOL)
+    assert torch.equal(got, got_t)
+
+
+def test_decode_attention_bf16_queries(dev):
+    rng = np.random.default_rng(13)
+    q = _normal(rng, (2, 2, 4, 64), dev, torch.bfloat16)
+    k, v, ks, vs = _cache(rng, dev, 2, 200, 2, 64, "int8")
+    got = decode_attention(q, k, v, 150, ks, vs)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got, decode_attention_plain(q, k, v, 150, ks,
+                                                           vs),
+                               **BF16_OUT_TOL)
+
+
+def test_lm_kernels_refuse_before_launch(dev):
+    """A wrong type or a non-contiguous input raises before any launch."""
+    K.reset_launch_counts()
+    rng = np.random.default_rng(14)
+    x = _normal(rng, (8, 64), dev)
+    wq = torch.zeros((64, 32), dtype=torch.int8, device=dev)
+    sc = torch.ones((1, 32), device=dev)
+    with pytest.raises(TypeError):
+        quant_matmul(x.to(torch.float16), wq, sc, bits=8)
+    with pytest.raises(TypeError):
+        quant_matmul(x, wq.to(torch.uint8), sc, bits=8)
+    with pytest.raises(TypeError):
+        quant_matmul(x, wq, sc.to(torch.float16), bits=8)
+    with pytest.raises(ValueError, match="contiguous"):
+        quant_matmul(_normal(rng, (64, 8), dev).t(), wq, sc, bits=8)
+    with pytest.raises(ValueError, match="contiguous"):
+        quant_matmul(x, torch.zeros((32, 64), dtype=torch.int8,
+                                    device=dev).t(), sc, bits=8)
+    q = _normal(rng, (1, 2, 4, 16), dev)
+    k, v, ks, vs = _cache(rng, dev, 1, 40, 2, 16, "int8")
+    with pytest.raises(TypeError):
+        decode_attention(q.to(torch.float16), k, v, 40, ks, vs)
+    with pytest.raises(TypeError):
+        decode_attention(q, k.to(torch.int16), v.to(torch.int16), 40)
+    with pytest.raises(ValueError, match="contiguous"):
+        decode_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2),
+                         v, 40, ks, vs)
+    with pytest.raises(TypeError):
+        decode_attention(q, k, v, torch.tensor(40, device=dev), ks, vs)
+    assert K.launch_counts()["quant_matmul"] == 0
+    assert K.launch_counts()["decode_attention"] == 0
+
+
+def test_lm_entry_points_count_launches(dev):
+    rng = np.random.default_rng(15)
+    wq, sc = K.quantize_weight_for_matmul(_normal(rng, (128, 64), dev),
+                                          bits=4, group_size=32)
+    q = _normal(rng, (2, 1, 8, 16), dev)
+    k, v, ks, vs = _cache(rng, dev, 2, 70, 2, 16, "int8")
+    K.reset_launch_counts()
+    y = K.quantized_linear(_normal(rng, (2, 3, 128), dev, torch.bfloat16),
+                           wq, sc, bits=4)
+    o = K.decode_attend(q, {"k": k, "v": v, "k_scale": ks, "v_scale": vs},
+                        60)
+    torch.cuda.synchronize()
+    assert y.shape == (2, 3, 64) and y.dtype == torch.bfloat16
+    assert o.shape == (2, 1, 8, 16)
+    assert K.launch_counts() == {"pointwise_conv_q": 0, "depthwise_conv_q": 0,
+                                 "fused_irb_q": 0, "quant_matmul": 1,
+                                 "decode_attention": 1}

@@ -1,0 +1,341 @@
+"""The port's LM operator entry points (`kernels/ops.py`:
+`quantize_weight_for_matmul`, `quantized_linear`, `decode_attend`), their
+kernels' plain versions, `kv_quant`, int4 packing, the Llama-3.2-1B config
+and `convert.lm_from_reference`, against the JAX package on the same
+numpy-seeded inputs. The JAX Pallas kernels run in interpret mode, as the
+JAX package's own tests run them.
+
+Tolerances are the JAX tests': quantized matmul rtol 1e-5 / atol 1e-3 in
+f32 and rtol 2e-2 / atol 2e-1 with bf16 inputs
+(`test_kernels_quant_matmul.py`), decode attention rtol 1e-5 / atol 1e-5
+(`test_kernels_decode_attention.py`): the sums run in another order.
+Quantization, packing and `kv_quant` are exact.
+
+At full width, the port is held against the golden
+`tests/golden_torch/llama32_1b_lm_ops.npz`, which stores only the JAX
+entry points' outputs (inputs: `tests/torch_lm_cases.py`). Regenerate it:
+
+    PYTHONPATH=src python -m tests.test_torch_lm_ops --regen
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro.configs import llama32_1b as jax_llama
+from repro.core import quant as RQ
+from repro.kernels import ops as RK
+from repro.kernels.decode_attention import decode_attention as jax_decode
+from repro.kernels.quant_matmul import quant_matmul as jax_qmm
+from repro.models.lm import common as RC
+from repro.models.lm.config import LMConfig as JaxLMConfig
+from repro_torch.configs import llama32_1b
+from repro_torch.convert import lm_from_reference
+from repro_torch.core import quant as Q
+from repro_torch.kernels import ops as K
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.models.lm.common import kv_dequant, kv_quant
+from tests import torch_lm_cases as C
+
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden_torch",
+                      "llama32_1b_lm_ops.npz")
+F32_TOL = dict(rtol=1e-5, atol=1e-3)
+BF16_TOL = dict(rtol=2e-2, atol=2e-1)
+ATTN_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.float().numpy() if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def _bf16_bits(a) -> np.ndarray:
+    """The raw 16 bits of a bf16 array or tensor."""
+    if isinstance(a, torch.Tensor):
+        return a.view(torch.int16).numpy().view(np.uint16)
+    return np.asarray(a).view(np.uint16)
+
+
+def test_llama32_1b_config_matches_reference():
+    assert dataclasses.asdict(llama32_1b.get_config()) == \
+        dataclasses.asdict(jax_llama.get_config())
+    assert [f.name for f in dataclasses.fields(llama32_1b.get_config())] == \
+        [f.name for f in dataclasses.fields(JaxLMConfig)]
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_symmetric_range_matches_reference(bits):
+    cfg = RQ.QuantConfig(bits, symmetric=True)
+    assert Q.symmetric_range(bits) == (cfg.qmin, cfg.qmax)
+
+
+@pytest.mark.parametrize("signed", [False, True])
+def test_int4_pack_unpack_bit_exact(signed):
+    rng = np.random.default_rng(0)
+    q = rng.integers(-8, 8, (6, 3, 10)).astype(np.int32)
+    packed = Q.pack_int4(torch.from_numpy(q))
+    want = np.asarray(RQ.pack_int4(jnp.asarray(q)))
+    assert packed.dtype == torch.uint8
+    np.testing.assert_array_equal(packed.numpy(), want)
+    np.testing.assert_array_equal(
+        Q.unpack_int4(packed, signed=signed).numpy(),
+        np.asarray(RQ.unpack_int4(jnp.asarray(want), signed=signed)))
+    with pytest.raises(ValueError):
+        Q.pack_int4(torch.zeros((2, 3), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("bits,gs", [(8, None), (4, None), (4, 128),
+                                     (8, 64), (4, 16)])
+def test_quantize_weight_for_matmul_bit_exact(bits, gs):
+    """w_q and scales equal the JAX function's bit for bit, carried across
+    by `lm_from_reference` as its tuple; a zero column takes scale 1."""
+    rng = np.random.default_rng(3)
+    w = rng.normal(size=(256, 96)).astype(np.float32)
+    w[:, 5] = 0.0
+    got = K.quantize_weight_for_matmul(torch.from_numpy(w), bits=bits,
+                                       group_size=gs)
+    want = lm_from_reference(
+        RK.quantize_weight_for_matmul(jnp.asarray(w), bits=bits,
+                                      group_size=gs), device="cpu")
+    assert got[0].dtype == want[0].dtype == (
+        torch.uint8 if bits == 4 else torch.int8)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+
+
+def test_kv_quant_bit_exact():
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(2, 33, 4, 16)).astype(np.float32) * 3
+    x[0, 1, 2] = 0.0  # scale floors at 1e-8
+    q, s = kv_quant(torch.from_numpy(x))
+    rq, rs = RC.kv_quant(jnp.asarray(x))
+    assert q.dtype == torch.int8 and s.dtype == torch.bfloat16
+    np.testing.assert_array_equal(q.numpy(), np.asarray(rq))
+    np.testing.assert_array_equal(_bf16_bits(s), _bf16_bits(rs))
+    np.testing.assert_array_equal(
+        kv_dequant(q, s, torch.float32).numpy(),
+        np.asarray(RC.kv_dequant(rq, rs, jnp.float32)))
+
+
+@pytest.mark.parametrize("m,k,n,bits,gs,bm,bn,bk", [
+    (64, 256, 128, 8, None, 32, 64, 128),
+    (64, 256, 128, 4, None, 32, 64, 128),
+    (32, 512, 256, 4, 128, 32, 128, 128),
+    (128, 384, 128, 8, 128, 64, 128, 128),
+    (16, 128, 64, 8, 64, 16, 64, 64),
+    (256, 1024, 512, 4, 256, 128, 128, 256),
+])
+def test_quantized_linear_matches_jax_kernel(m, k, n, bits, gs, bm, bn, bk):
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    w = rng.normal(size=(k, n)).astype(np.float32)
+    wq, sc = RK.quantize_weight_for_matmul(jnp.asarray(w), bits=bits,
+                                           group_size=gs)
+    want = jax_qmm(jnp.asarray(x), wq, sc, bits=bits, block_m=bm,
+                   block_n=bn, block_k=bk, interpret=True)
+    twq, tsc = K.quantize_weight_for_matmul(torch.from_numpy(w), bits=bits,
+                                            group_size=gs)
+    got = K.quantized_linear(torch.from_numpy(x), twq, tsc, bits=bits)
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantized_linear_dtypes_match_jax(dtype):
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(3, 5, 128)).astype(np.float32)
+    w = rng.normal(size=(128, 64)).astype(np.float32)
+    wq, sc = RK.quantize_weight_for_matmul(jnp.asarray(w), bits=8)
+    want = RK.quantized_linear(jnp.asarray(x, dtype), wq, sc, bits=8,
+                               interpret=True)
+    twq, tsc = lm_from_reference((wq, sc), device="cpu")
+    got = K.quantized_linear(torch.from_numpy(x).to(getattr(torch, dtype)),
+                             twq, tsc, bits=8)
+    assert got.shape == (3, 5, 64) and got.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(
+        _np(got), np.asarray(want, np.float32),
+        **(F32_TOL if dtype == "float32" else BF16_TOL))
+
+
+def test_quantized_linear_degenerate_groups_raise_cleanly():
+    """4 scale groups for K = 2: refused like the JAX kernel refuses it."""
+    x = torch.ones((4, 2))
+    wq = torch.ones((2, 8), dtype=torch.int8)
+    sc = torch.ones((4, 8))
+    with pytest.raises(ValueError, match="not divisible"):
+        K.quantized_linear(x, wq, sc, bits=8)
+    with pytest.raises(ValueError):
+        RK.quantized_linear(jnp.asarray(x.numpy()), jnp.asarray(wq.numpy()),
+                            jnp.asarray(sc.numpy()), bits=8)
+
+
+def _jax_cache(b, kv, dh, s, quant, seed=0, rep=1):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, kv, rep, dh)).astype(np.float32)
+    kc = jnp.asarray(rng.normal(size=(b, s, kv, dh)), jnp.float32)
+    vc = jnp.asarray(rng.normal(size=(b, s, kv, dh)), jnp.float32)
+    if quant:
+        (kc, ks), (vc, vs) = RC.kv_quant(kc), RC.kv_quant(vc)
+        return q, {"k": kc, "v": vc, "k_scale": ks, "v_scale": vs}
+    return q, {"k": kc, "v": vc}
+
+
+@pytest.mark.parametrize("b,kv,rep,dh,s,bs,quant,vlen", [
+    (2, 2, 4, 16, 64, 16, False, 64),
+    (2, 2, 4, 16, 64, 16, False, 37),    # partially filled cache
+    (1, 4, 1, 32, 128, 32, False, 100),  # MHA (rep=1)
+    (2, 2, 4, 16, 100, 32, False, 70),   # ragged S vs block
+    (2, 2, 4, 16, 64, 16, True, 50),     # int8 cache, bf16 scales
+    (2, 1, 8, 32, 96, 32, True, 96),     # MQA + int8
+    (1, 8, 8, 64, 256, 128, False, 256),  # qwen3-like geometry
+])
+def test_decode_attend_matches_jax_kernel(b, kv, rep, dh, s, bs, quant,
+                                          vlen):
+    """The JAX cache dict carried across by `lm_from_reference`, then the
+    port's `decode_attend` against the JAX kernel at the JAX test's block."""
+    q, cache = _jax_cache(b, kv, dh, s, quant, rep=rep)
+    want = jax_decode(jnp.asarray(q), cache["k"], cache["v"],
+                      jnp.int32(vlen), cache.get("k_scale"),
+                      cache.get("v_scale"), block_s=bs, interpret=True)
+    tcache = lm_from_reference({k: np.asarray(v) for k, v in cache.items()},
+                               device="cpu")
+    qm = torch.from_numpy(q).reshape(b, 1, kv * rep, dh)
+    got = K.decode_attend(qm, tcache, vlen)
+    assert got.shape == (b, 1, kv * rep, dh) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.reshape(b, kv, rep, dh).numpy(),
+                               np.asarray(want), **ATTN_TOL)
+    # a 0-dim int32 tensor kv_len gives the same answer
+    torch.testing.assert_close(
+        K.decode_attend(qm, tcache, torch.tensor(vlen, dtype=torch.int32)),
+        got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kv_len", [0, -3, torch.tensor(0, dtype=torch.int32)])
+def test_decode_attention_refuses_empty_cache(kv_len):
+    q, cache = _jax_cache(1, 2, 16, 32, False)
+    tc = lm_from_reference({k: np.asarray(v) for k, v in cache.items()},
+                           device="cpu")
+    with pytest.raises(ValueError, match="no cache position"):
+        decode_attention(torch.from_numpy(q), tc["k"], tc["v"], kv_len)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_lm_from_reference_init_linear(bits):
+    """An `init_linear` dict (bf16 scales, packed uint8 at 4 bits) carried
+    across: the port's `quantized_linear` equals the JAX LM's `linear`."""
+    cfg = jax_llama.get_config(quant_bits=bits)
+    p, _ = RC.init_linear(jax.random.PRNGKey(7), 256, 96, "embed", "heads",
+                          cfg)
+    tp = lm_from_reference({k: np.asarray(v) for k, v in p.items()},
+                           device="cpu")
+    assert tp["scale"].dtype == torch.bfloat16
+    assert tp["w_q"].dtype == (torch.uint8 if bits == 4 else torch.int8)
+    np.testing.assert_array_equal(tp["w_q"].numpy(), np.asarray(p["w_q"]))
+    np.testing.assert_array_equal(_bf16_bits(tp["scale"]),
+                                  _bf16_bits(p["scale"]))
+    x = np.random.default_rng(8).normal(size=(2, 3, 256)).astype(np.float32)
+    want = RC.linear(jnp.asarray(x), p)
+    got = K.quantized_linear(torch.from_numpy(x), tp["w_q"], tp["scale"],
+                             bits=bits)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+
+
+def test_lm_from_reference_bf16_cache_and_refusals():
+    """A bf16 cache keeps its bits across; other inputs are refused."""
+    rng = np.random.default_rng(9)
+    k = jnp.asarray(rng.normal(size=(1, 8, 2, 16)), jnp.bfloat16)
+    tc = lm_from_reference({"k": np.asarray(k), "v": np.asarray(k)},
+                           device="cpu")
+    assert tc["k"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(_bf16_bits(tc["k"]), _bf16_bits(k))
+    for bad in ({"w": np.zeros(2)}, {"k": np.zeros(2)}, [np.zeros(2)]):
+        with pytest.raises(ValueError):
+            lm_from_reference(bad, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# full width, against the golden the JAX entry points wrote
+# ---------------------------------------------------------------------------
+
+CFG = llama32_1b.get_config()
+LAYER = C.layer_linears(CFG)[:7]
+
+
+@pytest.fixture(scope="module")
+def golden():
+    fix = np.load(GOLDEN)
+    return {k: fix[k] for k in fix.files}
+
+
+@pytest.mark.parametrize("scheme", C.GOLDEN_SCHEMES)
+@pytest.mark.parametrize("name,k,n", LAYER, ids=[c[0] for c in LAYER])
+def test_fullwidth_linear_matches_golden(golden, scheme, name, k, n):
+    bits, gs = C.SCHEMES[scheme]
+    wq, sc = K.quantize_weight_for_matmul(
+        torch.from_numpy(C.weight(name, k, n)), bits=bits, group_size=gs)
+    x = torch.from_numpy(C.activations(name, 8, k))
+    got = K.quantized_linear(x, wq, sc, bits=bits)
+    np.testing.assert_allclose(got.numpy(), golden[f"linear/{scheme}/{name}"],
+                               **F32_TOL)
+
+
+@pytest.fixture(scope="module")
+def decode_inputs():
+    return C.decode_inputs(CFG)
+
+
+@pytest.mark.parametrize("case,quant,kv_len", C.DECODE_CASES,
+                         ids=[c[0] for c in C.DECODE_CASES])
+def test_fullwidth_decode_matches_golden(golden, decode_inputs, case, quant,
+                                         kv_len):
+    q, k, v = (torch.from_numpy(a) for a in decode_inputs)
+    if quant:
+        (k, ks), (v, vs) = kv_quant(k), kv_quant(v)
+        cache = {"k": k, "v": v, "k_scale": ks, "v_scale": vs}
+    else:
+        cache = {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
+    got = K.decode_attend(q, cache, kv_len)
+    np.testing.assert_allclose(got.numpy(), golden[f"decode/{case}"],
+                               **ATTN_TOL)
+
+
+def regen() -> None:
+    """Write the golden with the JAX entry points (interpret mode)."""
+    cfg = jax_llama.get_config()
+    out = {}
+    for scheme in C.GOLDEN_SCHEMES:
+        bits, gs = C.SCHEMES[scheme]
+        for name, k, n in C.layer_linears(cfg)[:7]:
+            wq, sc = RK.quantize_weight_for_matmul(
+                jnp.asarray(C.weight(name, k, n)), bits=bits, group_size=gs)
+            y = RK.quantized_linear(jnp.asarray(C.activations(name, 8, k)),
+                                    wq, sc, bits=bits, interpret=True)
+            out[f"linear/{scheme}/{name}"] = np.asarray(y, np.float32)
+    q, k, v = (jnp.asarray(a) for a in C.decode_inputs(cfg))
+    for case, quant, kv_len in C.DECODE_CASES:
+        if quant:
+            (kq, ks), (vq, vs) = RC.kv_quant(k), RC.kv_quant(v)
+            cache = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+        else:
+            cache = {"k": k.astype(jnp.bfloat16), "v": v.astype(jnp.bfloat16)}
+        y = RK.decode_attend(q, cache, jnp.int32(kv_len), interpret=True)
+        out[f"decode/{case}"] = np.asarray(y, np.float32)
+    np.savez_compressed(GOLDEN, **out)
+    print(f"[lm_ops] {len(out)} cases, "
+          f"{os.path.getsize(GOLDEN) / 2**20:.2f} MiB -> {GOLDEN}")
+
+
+if __name__ == "__main__":
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--regen", action="store_true",
+                    help="rewrite the golden with the JAX package")
+    if ap.parse_args().regen:
+        regen()

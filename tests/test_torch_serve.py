@@ -112,7 +112,8 @@ def test_engine_from_artifact_routes_ops_through_kernels(mnv2, monkeypatch):
     assert calls == {"pointwise_conv_q": 3, "depthwise_conv_q": 1,
                      "fused_irb_q": 16}
     assert K.launch_counts() == {"pointwise_conv_q": 0,
-                                 "depthwise_conv_q": 0, "fused_irb_q": 0}
+                                 "depthwise_conv_q": 0, "fused_irb_q": 0,
+                                 "quant_matmul": 0, "decode_attention": 0}
     np.testing.assert_array_equal(
         np.stack([res[r].logits for r in rids]), logits)
 

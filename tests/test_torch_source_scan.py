@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.convert import lm_from_reference
 from repro_torch.core import cu, qnet as Q
 from repro_torch.serve.vision import VisionEngine, compile_stages
 from tests.regen_golden import fixture_paths
@@ -30,7 +31,10 @@ def _imported_roots(path: pathlib.Path):
 
 def test_port_files_found():
     assert len(PORT_FILES) > 15
-    assert ROOT / "src" / "repro_torch" / "kernels" / "ops.py" in PORT_FILES
+    for rel in ("kernels/ops.py", "kernels/quant_matmul.py",
+                "kernels/decode_attention.py", "models/lm/common.py",
+                "configs/llama32_1b.py"):
+        assert ROOT / "src" / "repro_torch" / rel in PORT_FILES
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -43,7 +47,8 @@ def test_no_jax_or_reference_import(path):
 
 @pytest.mark.parametrize("entry", ["prepare_qnet", "run_qnet",
                                    "compile_stages", "VisionEngine",
-                                   "VisionEngine.from_artifact"])
+                                   "VisionEngine.from_artifact",
+                                   "lm_from_reference"])
 def test_entry_points_refuse_to_run_without_cuda(entry, monkeypatch):
     path = fixture_paths("mobilenet_v2", 8)[0]
     qnet = Q.load_qnet(path)
@@ -54,6 +59,8 @@ def test_entry_points_refuse_to_run_without_cuda(entry, monkeypatch):
             "compile_stages": lambda: compile_stages(qnet),
             "VisionEngine": lambda: VisionEngine(qnet),
             "VisionEngine.from_artifact":
-                lambda: VisionEngine.from_artifact(path)}[entry]
+                lambda: VisionEngine.from_artifact(path),
+            "lm_from_reference":
+                lambda: lm_from_reference({"k": x, "v": x})}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
