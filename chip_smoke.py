@@ -14,18 +14,22 @@ last line:
      PyTorch route, and every kernel call the served path makes (irb0/dw,
      irb0/project, irb1..irb16, tail/pw, classifier/fc) is run on exactly
      that input, through the kernel and through its plain version: they
-     must be equal (tolerance: exact). Each prints its time (CUDA events,
-     median of 25), the plain version's, one PyTorch library call's where
-     one computes the same accumulation, and the least time the card could
+     must be equal (tolerance: exact), and a second call must give the same
+     bits; K2's lines name the tile and K slices its `plan` chose. Each
+     prints its time (CUDA events, median of 25, the device's work alone:
+     see `time_ms`), the plain version's, one PyTorch library call's where
+     one computes the same accumulation, the least time the card could
      take (bytes at 3.35 TB/s or int8 operations at 1979 TOP/s; activations
-     counted at 1 byte a value, since every one lies in [0, 255]);
+     counted at 1 byte a value, since every one lies in [0, 255]), and
+     `call_ms`, the kernel's call with the host's launch cost included;
   4. serve: `VisionEngine.from_artifact` on `cuda` serves the 8 images as
      8 requests, with the launch counters set to 0 just before and read
      just after; the logits must equal the JAX package's `run_qnet` logits
      stored in the fixture bit for bit, every CU stage's output its stored
      digest, and the port's `cu.run_qnet` on the card the same logits;
   5. throughput: a closed loop over buckets 1/2/4/8 and a one-request-at-a-
-     time loop, with FPS and p50/p95 latency, per-stage device times, and a
+     time loop, with FPS and p50/p95 latency, per-stage times (CUDA events
+     around each stage's call, its host side included), and a
      short torch.profiler window (device busy share: the union of the
      device-side kernel and copy intervals over the wall time; top kernels);
   6. lm: the LM operator entry points at Llama-3.2-1B widths (read from
@@ -35,8 +39,11 @@ last line:
      W4 per channel and W4 in groups of 128, for 8 rows in f32 and bf16 and
      512 rows in bf16; `ops.decode_attend` runs batch 8 over a 4096-position
      cache, int8 (from `kv_quant`) at kv_len 4096 and 3001, bf16 at 3001.
-     The launch counters are set to 0 just before and read just after.
-     Each output is then held against the kernel's plain version on the same
+     The launch counters are set to 0 just before and read just after;
+     every 8-row linear must have taken K5's `decode` variant and every
+     512-row one its `mma` variant. Each case is called a second time and
+     must give the same bits. Each output is then held against the kernel's
+     plain version on the same
      inputs (the JAX tests' tolerances: quantized matmul rtol 1e-5 / atol
      1e-3 in f32 and 2e-2 / 2e-1 in bf16, decode attention 1e-5 / 1e-5) and,
      where the JAX entry points wrote one, against the golden
@@ -90,6 +97,7 @@ LM_GOLDEN = os.path.join(ROOT, "tests", "golden_torch",
 QMM_TOL = {"float32": (1e-5, 1e-3), "bfloat16": (2e-2, 2e-1)}
 ATTN_TOL = (1e-5, 1e-5)
 REPS = 25
+SPIN_CYCLES = 2_000_000  # about 1 ms at the H100's clock
 
 
 def card_line() -> str:
@@ -113,8 +121,14 @@ def digests(act) -> list:
     return [hashlib.sha256(row.tobytes()).hexdigest() for row in u8]
 
 
-def time_ms(fn, reps: int = REPS) -> float:
-    """Median device time of one call, CUDA events around each call."""
+def time_ms(fn, reps: int = REPS, device_only: bool = True) -> float:
+    """Median time of one call, CUDA events around each call. With
+    `device_only`, a spin kernel (`torch.cuda._sleep`, about 1 ms) holds the
+    stream while the host enqueues the first event, the call and the
+    second event, so the interval is the device's work alone; a call whose
+    host side outlasts the spin still shows its gaps (the number never
+    falls below the device's time). Without it, the call as the host sees
+    it: the Python wrapper and the launch cost included."""
     import torch
     for _ in range(3):
         fn()
@@ -122,6 +136,8 @@ def time_ms(fn, reps: int = REPS) -> float:
     for _ in range(reps):
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
+        if device_only:
+            torch.cuda._sleep(SPIN_CYCLES)
         t0.record()
         fn()
         t1.record()
@@ -145,7 +161,7 @@ def bytes_moved(acts_in: int, acts_out: int, consts: int):
 def main_path_calls(pq, x):
     """Walk the net on `x` with the plain route; return every kernel call
     the served path makes, as (kernel, label, kernel_fn, plain_fn,
-    library_fn or None, (least bytes, bytes as stored), ops)."""
+    library_fn or None, (least bytes, bytes as stored), ops, plan text)."""
     import torch
     import torch.nn.functional as F
 
@@ -155,7 +171,7 @@ def main_path_calls(pq, x):
         depthwise_conv_q, depthwise_conv_q_plain)
     from repro_torch.kernels.fused_irb import fused_irb_q, fused_irb_q_plain
     from repro_torch.kernels.pointwise_conv import (
-        pointwise_conv_q, pointwise_conv_q_plain)
+        plan as pw_plan, pointwise_conv_q, pointwise_conv_q_plain)
 
     calls = []
     s, z = cu.input_qparams(pq)
@@ -176,7 +192,7 @@ def main_path_calls(pq, x):
                 lambda a=xin, t=tensors, k=kw: fused_irb_q_plain(a, *t, **k),
                 None,
                 bytes_moved(xin.numel(), b * ho * wo * c_out,
-                            nbytes(*tensors)), ops))
+                            nbytes(*tensors)), ops, ""))
         else:
             h_in = y
             for op in block.ops:
@@ -198,7 +214,7 @@ def main_path_calls(pq, x):
                             F.conv2d(xf, wf, stride=st, padding=p, groups=g),
                         bytes_moved(h_in.numel(), b * ho * wo * c,
                                     nbytes(*args[1:])),
-                        2 * b * ho * wo * c * op.kernel ** 2))
+                        2 * b * ho * wo * c * op.kernel ** 2, ""))
                 elif op.kind in (G.PW, G.DENSE):
                     kw = dict(qmax=pop.qmax)
                     args = (h_in, pop.w_kern, pop.mult, pop.zpc, pop.bias_q)
@@ -206,6 +222,7 @@ def main_path_calls(pq, x):
                     m = h_in.numel() // k_dim
                     xf = h_in.reshape(m, k_dim).to(torch.float32)
                     wf = pop.w_kern.to(torch.float32)
+                    tile, splits = pw_plan(m, k_dim, n_dim)
                     calls.append((
                         "pointwise_conv_q", op.name,
                         lambda a=args, k=kw: pointwise_conv_q(*a, **k),
@@ -213,7 +230,8 @@ def main_path_calls(pq, x):
                         lambda xf=xf, wf=wf: torch.matmul(xf, wf),
                         bytes_moved(h_in.numel(), m * n_dim,
                                     nbytes(*args[1:])),
-                        2 * m * k_dim * n_dim))
+                        2 * m * k_dim * n_dim,
+                        f" tile={tile} splits={splits}"))
                 h_in = cu.run_qop(h_in, pop)
         y, s, z = cu.run_block(y, block, pq, s, z)
     return calls
@@ -223,33 +241,43 @@ def phase_kernels(pq, x):
     import torch
 
     print("[kernels] each kernel against its plain version on the main "
-          "path's inputs, batch 8 (tolerance: exact)")
+          "path's inputs, batch 8 (tolerance: exact), called twice (the "
+          "same bits)")
     rows = {}
-    for name, label, kern, plain, lib, (nb, nb32), ops in \
+    for name, label, kern, plain, lib, (nb, nb32), ops, note in \
             main_path_calls(pq, x):
-        got, want = kern(), plain()
+        got, again, want = kern(), kern(), plain()
         torch.cuda.synchronize()
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
         if got.shape != want.shape or err != 0:
             raise SystemExit(f"[kernels] {name}[{label}] differs from its "
                              f"plain version: max |err| {err}")
+        if not torch.equal(got, again):
+            raise SystemExit(f"[kernels] {name}[{label}]: two calls gave "
+                             f"different bits")
         ms, plain_ms = time_ms(kern), time_ms(plain)
         lib_ms = time_ms(lib) if lib is not None else None
+        call_ms = time_ms(kern, device_only=False)
         bytes_ms = nb / HBM_BYTES_PER_S * 1e3
         bytes32_ms = nb32 / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / INT8_OPS_PER_S * 1e3
-        print(f"  {name}[{label}] {tuple(got.shape)} max_abs_err={err} "
+        print(f"  {name}[{label}] {tuple(got.shape)}{note} max_abs_err={err} "
               f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
               f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} "
               f"bound_ms={max(bytes_ms, ops_ms):.5f} "
               f"({'bytes' if bytes_ms >= ops_ms else 'operations'}; "
-              f"int32 activations: {max(bytes32_ms, ops_ms):.5f})")
+              f"int32 activations: {max(bytes32_ms, ops_ms):.5f}) "
+              f"call_ms={call_ms:.4f}")
         r = _row(rows, name, err, ms, plain_ms, lib_ms, bytes_ms, ops_ms)
         r["bound32"] += max(bytes32_ms, ops_ms)
+        r["call_ms"] += call_ms
     for name, r in rows.items():
         print(f"[kernels] {name}: ms {r['ms']:.4f} over the micro-batch, "
               f"bound_ms {r['bound']:.5f} (1-byte activations), "
               f"{r['bound32']:.5f} (int32 activations)")
+    for name, r in rows.items():
+        print(f"[kernels] {name}: call_ms {r['call_ms']:.4f} over the "
+              f"micro-batch (the host's launch cost included)")
     return rows
 
 
@@ -330,7 +358,7 @@ def phase_throughput(imgs, card):
     x = torch.from_numpy(imgs).to(eng.device)
     parts = []
     for stage in eng.stages:
-        ms = time_ms(lambda s=stage, a=x: s.run(a))
+        ms = time_ms(lambda s=stage, a=x: s.run(a), device_only=False)
         parts.append(f"{stage.spec.cu} {ms:.4f}")
         x = stage.run(x)
     print(f"[throughput] device ms per stage at batch 8, CUDA events: "
@@ -391,7 +419,8 @@ def lm_inputs(cfg, dev):
 def _row(rows, name, err, ms, plain_ms, lib_ms, bytes_ms, ops_ms):
     r = rows.setdefault(name, dict(err=0, ms=0.0, plain_ms=0.0, lib_ms=0.0,
                                    has_lib=True, bytes_ms=0.0, ops_ms=0.0,
-                                   bound=0.0, bound32=0.0))
+                                   bound=0.0, bound32=0.0, call_ms=0.0,
+                                   lib_call_ms=0.0))
     r["err"] = max(r["err"], err)
     r["ms"] += ms
     r["plain_ms"] += plain_ms
@@ -424,7 +453,7 @@ def phase_lm(card):
     from repro_torch.kernels.decode_attention import (
         decode_attention, decode_attention_plain)
     from repro_torch.kernels.quant_matmul import (
-        dequantize, quant_matmul, quant_matmul_plain)
+        dequantize, plan, quant_matmul, quant_matmul_plain)
 
     cfg = llama32_1b.get_config()
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -438,27 +467,41 @@ def phase_lm(card):
           f"{time.perf_counter() - t0:.1f} s")
 
     K.reset_launch_counts()
-    outs = [K.quantized_linear(x, wq, sc, bits=bits)
-            for _, x, wq, sc, bits, _ in linears]
+    outs, took = [], []  # took: the variant each case's launch counted
+    for _, x, wq, sc, bits, _ in linears:
+        before = dict(quant_matmul.variants)
+        outs.append(K.quantized_linear(x, wq, sc, bits=bits))
+        took.append([v for v, c in quant_matmul.variants.items()
+                     if c != before[v]])
     douts = [K.decode_attend(q, cache, n) for _, q, cache, n, _ in decodes]
     torch.cuda.synchronize()
     counts = K.launch_counts()
     want = {name: 0 for name in counts}
     want.update(quant_matmul=len(linears), decode_attention=len(decodes))
-    print(f"[lm] launch counts of the entry points' run: {counts}")
+    print(f"[lm] launch counts of the entry points' run: {counts}; "
+          f"quant_matmul by variant: {quant_matmul.variants}")
     if counts != want:
         raise SystemExit(f"[lm] launches {counts} != expected {want}")
+    expect = {8: "decode", 512: "mma"}
+    wrong = [f"{case[0]} took {v}" for case, v in zip(linears, took)
+             if v != [expect[case[1].shape[0]]]]
+    if wrong:
+        raise SystemExit(f"[lm] wrong variant: {', '.join(wrong)}")
 
     golden = dict(np.load(LM_GOLDEN))
     rows, bad, layer = {}, [], {}
     print(f"[lm] {card}: each case against the plain version and the "
-          f"golden; ms = median of {REPS} (CUDA events); bound: bytes at "
+          f"golden; ms = median of {REPS} (CUDA events, device work "
+          f"alone; call_ms with the host's launch cost); bound: bytes at "
           f"3.35 TB/s, flops at the 989 TFLOP/s dense bf16 peak")
-    for (label, x, wq, sc, bits, gold), y in zip(linears, outs):
+    for (label, x, wq, sc, bits, gold), y, (variant,) in zip(linears, outs,
+                                                              took):
         dtype = str(x.dtype).split(".")[1]
         rtol, atol = QMM_TOL[dtype]
         err, ok = _close(y, quant_matmul_plain(x, wq, sc, bits=bits).to(
             x.dtype), rtol, atol)
+        if not torch.equal(y, K.quantized_linear(x, wq, sc, bits=bits)):
+            bad.append(f"quant_matmul[{label}] (two calls, different bits)")
         gtxt = "-"
         if gold is not None:
             gerr, gok = _close(y, torch.from_numpy(golden[gold]).to(dev),
@@ -471,20 +514,28 @@ def phase_lm(card):
         ms = time_ms(lambda: quant_matmul(x, wq, sc, bits=bits))
         plain_ms = time_ms(lambda: quant_matmul_plain(x, wq, sc, bits=bits))
         lib_ms = time_ms(lambda: torch.matmul(xf, wdq))
+        call_ms = time_ms(lambda: quant_matmul(x, wq, sc, bits=bits),
+                          device_only=False)
+        lib_call_ms = time_ms(lambda: torch.matmul(xf, wdq),
+                              device_only=False)
         del wdq, xf
         (m, k), n = x.shape, y.shape[1]
         bytes_ms = (nbytes(x, wq, sc) + 4 * m * n) / HBM_BYTES_PER_S * 1e3
         ops_ms = 2 * m * k * n / BF16_FLOPS_PER_S * 1e3
-        _row(rows, "quant_matmul", err, ms, plain_ms, lib_ms, bytes_ms,
-             ops_ms)
-        name, how = label.split("/", 1)
-        if name != "lm_head":
-            _row(layer, how, err, ms, plain_ms, lib_ms, bytes_ms, ops_ms)
-        print(f"  quant_matmul[{label}] ({m},{k})x({k},{n}) "
-              f"max_abs_err={err:.3g} golden_err={gtxt} ms={ms:.4f} "
+        for r in [_row(rows, "quant_matmul", err, ms, plain_ms, lib_ms,
+                       bytes_ms, ops_ms)] + (
+                [] if label.startswith("lm_head/") else
+                [_row(layer, label.split("/", 1)[1], err, ms, plain_ms,
+                      lib_ms, bytes_ms, ops_ms)]):
+            r["call_ms"] += call_ms
+            r["lib_call_ms"] += lib_call_ms
+        splits = plan(m, k, n, k // sc.shape[0], bits, x.dtype).splits
+        print(f"  quant_matmul[{label}] ({m},{k})x({k},{n}) variant={variant}"
+              f" splits={splits} max_abs_err={err:.3g} golden_err={gtxt} ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
               f"bound_ms={max(bytes_ms, ops_ms):.5f} "
-              f"({'bytes' if bytes_ms >= ops_ms else 'operations'})")
+              f"({'bytes' if bytes_ms >= ops_ms else 'operations'}) "
+              f"call_ms={call_ms:.4f} library_call_ms={lib_call_ms:.4f}")
     for (label, q, cache, kv_len, gold), y in zip(decodes, douts):
         b, _, h, dh = q.shape
         kv = cache["k"].shape[2]
@@ -493,6 +544,9 @@ def phase_lm(card):
                 cache.get("v_scale"))
         err, ok = _close(y.reshape(qg.shape), decode_attention_plain(*args),
                          *ATTN_TOL)
+        if not torch.equal(y, K.decode_attend(q, cache, kv_len)):
+            bad.append(f"decode_attention[{label}] (two calls, different "
+                       f"bits)")
         gerr, gok = _close(y, torch.from_numpy(golden[gold]).to(dev),
                            *ATTN_TOL)
         if not (ok and gok):
@@ -531,6 +585,11 @@ def phase_lm(card):
         print(f"[lm] {name}: ms {r['ms']:.4f} over its "
               f"{counts[name]} cases, bound_ms {r['bound']:.5f}, plain_ms "
               f"{r['plain_ms']:.4f}, library_ms {r['lib_ms']:.4f}")
+    for how, r in list(layer.items()) + [
+            (f"all {counts['quant_matmul']} cases", rows["quant_matmul"])]:
+        print(f"[lm] quant_matmul, {how}, the host's launch cost included: "
+              f"call_ms {r['call_ms']:.4f}, library_call_ms "
+              f"{r['lib_call_ms']:.4f}")
     if bad:
         raise SystemExit(f"[lm] out of tolerance: {', '.join(bad)}")
     return rows, counts

@@ -27,6 +27,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 NVCC_TIMEOUT_S = 600
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_fns: Dict[tuple, object] = {}
 
 
 def nvcc() -> str:
@@ -84,7 +85,12 @@ def build_all(names: Optional[List[str]] = None) -> Dict[str, str]:
 
 
 def function(lib_name: str, fn_name: str, argtypes, restype=ctypes.c_int):
-    """The C function `fn_name` of `csrc/<lib_name>.cu`, built if needed."""
+    """The C function `fn_name` of `csrc/<lib_name>.cu`, built if needed
+    (typed once, then taken from a cache: wrappers call this every
+    launch)."""
+    fn = _fns.get((lib_name, fn_name))
+    if fn is not None:
+        return fn
     lib = _libs.get(lib_name)
     if lib is None:
         build_all([lib_name])
@@ -92,6 +98,7 @@ def function(lib_name: str, fn_name: str, argtypes, restype=ctypes.c_int):
     fn = getattr(lib, fn_name)
     fn.argtypes = argtypes
     fn.restype = restype
+    _fns[(lib_name, fn_name)] = fn
     return fn
 
 

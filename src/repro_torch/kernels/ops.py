@@ -22,7 +22,9 @@ over a KV-cache dict through `decode_attention.decode_attention`). No
 model calls them yet: the JAX LM computes its linears and attention in
 plain jnp, and so will the port's.
 
-`launch_counts()` reads the kernels' launch counters.
+`launch_counts()` reads the kernels' launch counters; K2 and K5 also
+count their launches by variant (`pointwise_conv_q.variants`,
+`quant_matmul.variants`).
 """
 from __future__ import annotations
 
@@ -49,8 +51,12 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
+    """Zero every launch counter, and the per-variant counters of the
+    kernels that have variants."""
     for k in KERNELS:
         k.launches = 0
+        if hasattr(k, "variants"):
+            k.variants = dict.fromkeys(k.variants, 0)
 
 
 def run_pw_qop(x_q: torch.Tensor, pop: _cu.PreparedQOp) -> torch.Tensor:

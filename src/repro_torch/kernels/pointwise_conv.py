@@ -8,12 +8,21 @@ bit-exact with `int_pointwise` + `quantized_op_epilogue`.
 
 `pointwise_conv_q` launches the CUDA kernel `csrc/pointwise_conv.cu` for a
 CUDA tensor and runs the plain PyTorch version `pointwise_conv_q_plain` for
-a CPU tensor; it raises for anything else. `pointwise_conv_q.launches`
-counts the kernel's launches.
+a CPU tensor; it raises for anything else. The kernel runs on the integer
+tensor cores with the activations narrowed to u8, so its domain is x in
+[0, 255] (every act4/act8 activation of a `.qnet` lies there); the wrapper
+does not read x back to check it.
+
+`plan(m, k, n)` picks the tile and how many slices K is cut into (plain
+Python): with few rows the tiles leave SMs idle, so K is split across
+blocks, and a second pass adds the int32 partials and runs the epilogue.
+`pointwise_conv_q.launches` counts calls (one each, that pass included)
+and `pointwise_conv_q.variants` counts them as "single" or "split_k".
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -21,8 +30,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.common import check_tensor as _check, requant_clip
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 6 + [_I] * 7 + [_P]
-BLOCKS_M, BLOCKS_N, BLOCKS_K = (16, 64, 128), (16, 64), (16, 32)
+_ARGTYPES = [_P] * 7 + [_I] * 9 + [_P]
+BLOCKS_M, BLOCKS_N, BLOCKS_K = (16, 64, 128), (16, 64), (32, 128)
+SMS = 132  # streaming multiprocessors of an H100 SXM
 
 
 def pointwise_conv_q_plain(x_q, w_q, mult, zpc, bias_q, *,
@@ -32,10 +42,29 @@ def pointwise_conv_q_plain(x_q, w_q, mult, zpc, bias_q, *,
     return requant_clip(acc.to(torch.int32), mult, bias_q, qmax, zpc=zpc)
 
 
-def default_blocks(m: int, n: int):
-    """(block_m, block_n, block_k) for an [m, k] x [k, n] product."""
-    bm = 128 if m >= 8192 else (64 if m >= 64 else 16)
-    return bm, (16 if n <= 16 else 64), 32
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=4096)  # called on every launch
+def plan(m: int, k: int, n: int, *, block_m=None, block_n=None,
+         block_k=None):
+    """((block_m, block_n, block_k), splits) for an [m, k] x [k, n]
+    product; `block_*` override the tile. K is split when the tiles cover
+    fewer than two blocks an SM, into slices of whole `block_k` steps."""
+    bm = block_m or (16 if m <= 512 else 64)  # the faster on the card
+    bn = block_n or (16 if n <= 16 else 64)
+    bk = block_k or (32 if k <= 32 else 128)
+    if bm not in BLOCKS_M or bn not in BLOCKS_N or bk not in BLOCKS_K:
+        raise ValueError(f"unsupported tile ({bm}, {bn}, {bk})")
+    tiles = _cdiv(m, bm) * _cdiv(n, bn)
+    splits = min(_cdiv(k, bk), _cdiv(2 * SMS, tiles)) if tiles < SMS else 1
+    return (bm, bn, bk), _cdiv(k, ksplit_of(k, (bm, bn, bk), splits))
+
+
+def ksplit_of(k: int, tile, splits: int) -> int:
+    """Rows of K a slice covers (a whole number of block_k steps)."""
+    return _cdiv(_cdiv(k, tile[2]), splits) * tile[2]
 
 
 def pointwise_conv_q(x_q: torch.Tensor, w_q: torch.Tensor, mult: torch.Tensor,
@@ -59,23 +88,35 @@ def pointwise_conv_q(x_q: torch.Tensor, w_q: torch.Tensor, mult: torch.Tensor,
     _check(zpc, torch.int32, "zpc", x_q.device, n)
     _check(bias_q, torch.int32, "bias_q", x_q.device, n)
     m = x_q.numel() // k
-    dm, dn, dk = default_blocks(m, n)
-    bm, bn, bk = block_m or dm, block_n or dn, block_k or dk
-    if bm not in BLOCKS_M or bn not in BLOCKS_N or bk not in BLOCKS_K:
-        raise ValueError(f"unsupported tile ({bm}, {bn}, {bk})")
+    tile, splits = plan(m, k, n, block_m=block_m, block_n=block_n,
+                        block_k=block_k)
     out = torch.empty((*lead, n), dtype=torch.int32, device=x_q.device)
+    if out.numel() == 0:
+        return out
+    work = torch.empty(workspace_shape(m, n, splits), dtype=torch.int32,
+                       device=x_q.device) if splits > 1 else None
     fn = _build.function("pointwise_conv", "pointwise_conv_q_launch",
                          _ARGTYPES)
     err = fn(x_q.data_ptr(), w_q.data_ptr(), mult.data_ptr(), zpc.data_ptr(),
-             bias_q.data_ptr(), out.data_ptr(), m, k, n, qmax, bm, bn, bk,
+             bias_q.data_ptr(), out.data_ptr(),
+             work.data_ptr() if work is not None else None, m, k, n,
+             qmax, *tile, splits, ksplit_of(k, tile, splits),
              torch.cuda.current_stream(x_q.device).cuda_stream)
     if err:
         raise RuntimeError(f"pointwise_conv_q launch failed: CUDA error {err}")
     pointwise_conv_q.launches += 1
+    pointwise_conv_q.variants["split_k" if splits > 1 else "single"] += 1
     return out
 
 
+def workspace_shape(m: int, n: int, splits: int):
+    """The int32 partials the wrapper allocates: none for one slice."""
+    return (splits, m, n) if splits > 1 else (0,)
+
+
 pointwise_conv_q.launches = 0
+pointwise_conv_q.variants = {"single": 0, "split_k": 0}
 
 
-__all__ = ["pointwise_conv_q", "pointwise_conv_q_plain", "default_blocks"]
+__all__ = ["pointwise_conv_q", "pointwise_conv_q_plain", "plan", "ksplit_of",
+           "workspace_shape"]

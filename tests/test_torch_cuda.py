@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 over geometries the main path does not reach (odd sizes, 5x5, stride 2,
 nonzero zero points, residual, ragged tiles, every pointwise tile), and the
-served golden route on the card. Exact equality for the integer kernels.
+served golden route on the card. Exact equality for the integer kernels. The split-K,
+variant and determinism cases check `plan`'s choices through the
+kernels' per-variant counters.
 The float LM kernels sum in another order than their plain versions: the
 quantized matmul is held at rtol 1e-5 / atol 1e-3 and decode attention at
 rtol 1e-5 / atol 1e-5, the JAX tests' tolerances (bf16 outputs: one bf16
@@ -32,10 +34,15 @@ from repro_torch.kernels.pointwise_conv import (
     BLOCKS_K,
     BLOCKS_M,
     BLOCKS_N,
+    plan as pw_plan,
     pointwise_conv_q,
     pointwise_conv_q_plain,
 )
-from repro_torch.kernels.quant_matmul import quant_matmul, quant_matmul_plain
+from repro_torch.kernels.quant_matmul import (
+    plan as qmm_plan,
+    quant_matmul,
+    quant_matmul_plain,
+)
 from repro_torch.models.lm.common import kv_quant
 from repro_torch.serve.vision import VisionEngine
 
@@ -90,6 +97,43 @@ def test_pointwise_shapes(dev, shape, cin, cout):
     x = _rand(rng, dev, (*shape, cin), 0, 256, torch.int32)
     w = _rand(rng, dev, (cin, cout), -127, 128, torch.int8)
     mult, zpc, bias = _consts(rng, dev, cout, 3, w.to(torch.int32).sum(0))
+    _equal(pointwise_conv_q(x, w, mult, zpc, bias, qmax=255),
+           pointwise_conv_q_plain(x, w, mult, zpc, bias, qmax=255))
+
+
+@pytest.mark.parametrize("shape,cin,cout,block_k", [
+    ((8,), 1280, 1000, None),  # the Classifier's launch
+    ((1, 3, 5), 100, 36, 32),  # K not a multiple of 32: a short last slice
+    ((2,), 37, 20, 32),        # K % 4 != 0: x read a value at a time
+])
+def test_pointwise_split_k(dev, shape, cin, cout, block_k):
+    """Few rows: K split across blocks, the int32 partials added by the
+    epilogue pass; the same bits as the plain version, one launch."""
+    rng = np.random.default_rng(5)
+    x = _rand(rng, dev, (*shape, cin), 0, 256, torch.int32)
+    w = _rand(rng, dev, (cin, cout), -127, 128, torch.int8)
+    mult, zpc, bias = _consts(rng, dev, cout, -9, w.to(torch.int32).sum(0))
+    m = x.numel() // cin
+    assert pw_plan(m, cin, cout, block_k=block_k)[1] > 1
+    K.reset_launch_counts()
+    got = pointwise_conv_q(x, w, mult, zpc, bias, qmax=255, block_k=block_k)
+    assert pointwise_conv_q.launches == 1
+    assert pointwise_conv_q.variants == {"single": 0, "split_k": 1}
+    _equal(got, pointwise_conv_q_plain(x, w, mult, zpc, bias, qmax=255))
+
+
+@pytest.mark.parametrize("value", [0, 255])
+@pytest.mark.parametrize("shape,cin,cout", [((8,), 1280, 1000),
+                                            ((2, 14, 14), 32, 16)])
+def test_pointwise_extreme_inputs(dev, value, shape, cin, cout):
+    """All-0 and all-255 activations (the ends of the kernel's u8 domain)
+    against weights at both ends of int8."""
+    rng = np.random.default_rng(6)
+    x = torch.full((*shape, cin), value, dtype=torch.int32, device=dev)
+    w = torch.from_numpy(np.where(rng.random((cin, cout)) < 0.5, -128,
+                                  127).astype(np.int8)).to(dev)
+    mult, zpc, bias = _consts(rng, dev, cout, 0)
+    mult = mult * 0.01  # keep some outputs off the clip
     _equal(pointwise_conv_q(x, w, mult, zpc, bias, qmax=255),
            pointwise_conv_q_plain(x, w, mult, zpc, bias, qmax=255))
 
@@ -172,7 +216,7 @@ def _normal(rng, shape, dev, dtype=torch.float32):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m", [1, 7, 8, 33])
+@pytest.mark.parametrize("m", [1, 7, 8, 16, 17, 33, 64, 512])
 @pytest.mark.parametrize("n", [24, 512])
 @pytest.mark.parametrize("k,group", [(256, None), (256, 128), (136, 8)])
 @pytest.mark.parametrize("bits", [8, 4])
@@ -189,6 +233,51 @@ def test_quant_matmul(dev, bits, k, group, n, m, dtype):
     torch.cuda.synchronize()
     assert got.dtype == torch.float32 and got.shape == (m, n)
     torch.testing.assert_close(got, want, **QMM_TOL)
+
+
+@pytest.mark.parametrize("m,k,n,group,bits,variant", [
+    (8, 256, 512, None, 8, "decode"),
+    (16, 256, 512, 128, 4, "decode"),
+    (17, 256, 512, None, 8, "mma"),
+    (64, 256, 512, 128, 4, "mma"),
+    (8, 136, 512, 8, 4, "tiled"),    # groups of 8: not a 16-deep k step
+    (33, 136, 512, 8, 8, "tiled"),
+    (8, 256, 24, None, 8, "tiled"),  # 24-byte weight rows
+])
+def test_quant_matmul_plan_variant(dev, m, k, n, group, bits, variant):
+    """`plan` picks the variant from the shapes, and that variant ran."""
+    rng = np.random.default_rng(16)
+    wq, sc = K.quantize_weight_for_matmul(_normal(rng, (k, n), dev), bits=bits,
+                                          group_size=group)
+    x = _normal(rng, (m, k), dev, torch.bfloat16)
+    assert qmm_plan(m, k, n, group or k, bits, x.dtype).variant == variant
+    K.reset_launch_counts()
+    got = quant_matmul(x, wq, sc, bits=bits)
+    assert quant_matmul.launches == 1
+    assert quant_matmul.variants == {v: int(v == variant)
+                                     for v in ("tiled", "decode", "mma")}
+    torch.testing.assert_close(got, quant_matmul_plain(x, wq, sc, bits=bits),
+                               **QMM_TOL)
+
+
+@pytest.mark.parametrize("m,k,n,group,dtype", [
+    (8, 8192, 2048, None, torch.float32),    # decode, 32 slices of K
+    (8, 2048, 1024, 128, torch.bfloat16),
+    (512, 2048, 512, None, torch.bfloat16),  # mma, 4 slices of K
+    (96, 2048, 256, 128, torch.float32),     # mma, three bf16 terms
+])
+def test_quant_matmul_deterministic(dev, m, k, n, group, dtype):
+    """Split K, partials added in a fixed order: two calls, the same bits."""
+    rng = np.random.default_rng(17)
+    wq, sc = K.quantize_weight_for_matmul(_normal(rng, (k, n), dev) * k ** -0.5,
+                                          bits=4, group_size=group)
+    x = _normal(rng, (m, k), dev, dtype)
+    assert qmm_plan(m, k, n, group or k, 4, dtype).splits > 1
+    a, b = quant_matmul(x, wq, sc, bits=4), quant_matmul(x, wq, sc, bits=4)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    torch.testing.assert_close(a, quant_matmul_plain(x, wq, sc, bits=4),
+                               **QMM_TOL)
 
 
 def test_quant_matmul_f32_x_bf16_scales(dev):

@@ -5,7 +5,13 @@ route against the JAX reference interpreter on every fusable block of the
 MobileNetV2 goldens. Tolerance everywhere: exact.
 
 On the CPU each kernel wrapper runs its plain version, so these tests also
-drive the wrappers' CPU path."""
+drive the wrappers' CPU path. At the end, K2's and K5's `plan` (which
+kernel variant, tile and K slices a launch takes on the card) is checked
+for every shape the main paths and the card tests give them."""
+import itertools
+import math
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -201,3 +207,133 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="no kernel"):
         depthwise_conv_q(x, torch.zeros(3, 3, 8, dtype=torch.int8),
                          torch.zeros(8), z, z)
+
+
+# ---------------------------------------------------------------------------
+# K2's and K5's `plan`: a legal answer for every shape the main paths, the
+# [lm] phase of chip_smoke.py and the card tests give them (plain Python,
+# no card needed)
+# ---------------------------------------------------------------------------
+
+from repro_torch.configs import llama32_1b  # noqa: E402
+from repro_torch.core import graph as G  # noqa: E402
+from repro_torch.core.qnet import build_netspec, read_qnet_meta  # noqa: E402
+from repro_torch.kernels import pointwise_conv as PW  # noqa: E402
+from repro_torch.kernels import quant_matmul as QM  # noqa: E402
+from tests import torch_lm_cases as LMC  # noqa: E402
+
+_ROOT = os.path.dirname(__file__)
+_VISION_QNETS = [os.path.join(_ROOT, "golden_torch",
+                              "mobilenet_v2_alpha1_224_act8.qnet")] + [
+    os.path.join(_ROOT, "golden", f"{model}_act{bits}.qnet")
+    for model in ("mobilenet_v2", "efficientnet_compact") for bits in (4, 8)]
+
+
+def _pw_launches(spec: G.NetSpec, batch: int):
+    """(m, k, n) of every pointwise-kernel launch of the per-op route
+    (`ops.run_block_kernels`: PW/DENSE ops but the hsigmoid excite, and
+    each SE squeeze on the pooled [batch, C])."""
+    h, shapes = spec.input_hw, []
+    for block in spec.blocks:
+        for op in block.ops:
+            if op.kind in (G.CONV, G.DW):
+                h = -(-h // op.stride)
+            elif op.kind in (G.PW, G.DENSE) and op.act != G.HSIGMOID:
+                shapes.append((batch * h * h, op.in_ch, op.out_ch))
+            if block.se is not None and block.se_after == op.name:
+                shapes.append((batch, block.se.channels, block.se.reduced))
+        if block.avgpool:
+            h = 1
+    return shapes
+
+
+def _pw_cases():
+    shapes = set()
+    for path in _VISION_QNETS:
+        spec = build_netspec(read_qnet_meta(path)["build"])
+        for batch in (1, 2, 4, 8):
+            shapes.update((m, k, n, None) for m, k, n in
+                          _pw_launches(spec, batch))
+    # tests/test_torch_cuda.py
+    shapes.update((297, 40, 70, tile) for tile in
+                  itertools.product(PW.BLOCKS_M, PW.BLOCKS_N, PW.BLOCKS_K))
+    shapes.update({(8, 1280, 1000, None), (98, 320, 1280, None),
+                   (15, 100, 36, None), (12544, 24, 144, None),
+                   (15, 100, 36, (None, None, 32)),
+                   (2, 37, 20, (None, None, 32)), (392, 32, 16, None)})
+    return sorted(shapes, key=str)
+
+
+@pytest.mark.parametrize("m,k,n,tile", _pw_cases(), ids=str)
+def test_pointwise_plan_is_legal(m, k, n, tile):
+    bm, bn, bk = tile or (None, None, None)
+    got, splits = PW.plan(m, k, n, block_m=bm, block_n=bn, block_k=bk)
+    assert got[0] in PW.BLOCKS_M and got[1] in PW.BLOCKS_N
+    assert got[2] in PW.BLOCKS_K
+    assert tile is None or all(t in (None, g) for t, g in zip(tile, got))
+    ksplit = PW.ksplit_of(k, got, splits)
+    assert splits >= 1 and ksplit % got[2] == 0  # whole k steps
+    assert (splits - 1) * ksplit < k <= splits * ksplit  # none empty
+    if splits > 1:  # only where the tiles leave SMs idle
+        assert -(-m // got[0]) * -(-n // got[1]) < PW.SMS
+    assert math.prod(PW.workspace_shape(m, n, splits)) == (
+        splits * m * n if splits > 1 else 0)
+
+
+def test_pointwise_plan_main_path_choices():
+    """MobileNetV2's three launches a micro-batch of 8: the Head's and the
+    Tail's in one slice, the Classifier's 8 rows split along K."""
+    assert PW.plan(100352, 32, 16) == ((64, 16, 32), 1)
+    assert PW.plan(392, 320, 1280)[1] == 1
+    assert PW.plan(8, 1280, 1000)[1] > 1
+
+
+def _qmm_cases():
+    cases = set()
+    cfg = llama32_1b.get_config()
+    for _, k, n in LMC.layer_linears(cfg):
+        for bits, group in LMC.SCHEMES.values():
+            for m, dtype in ((8, "float32"), (8, "bfloat16"),
+                             (512, "bfloat16")):
+                cases.add((m, k, n, group or k, bits, dtype))
+    # tests/test_torch_cuda.py
+    for m in (1, 7, 8, 16, 17, 33, 64, 512):
+        for n in (24, 512):
+            for k, group in ((256, 256), (256, 128), (136, 8)):
+                for bits in (8, 4):
+                    for dtype in ("float32", "bfloat16"):
+                        cases.add((m, k, n, group, bits, dtype))
+    cases.update({(8, 8192, 2048, 8192, 4, "float32"),
+                  (8, 2048, 1024, 128, 4, "bfloat16"),
+                  (512, 2048, 512, 2048, 4, "bfloat16"),
+                  (96, 2048, 256, 128, 4, "float32"),
+                  (5, 300, 70, 300, 8, "float32"),
+                  (6, 128, 64, 32, 4, "bfloat16")})
+    return sorted(cases)
+
+
+@pytest.mark.parametrize("m,k,n,group,bits,dtype", _qmm_cases(), ids=str)
+def test_quant_matmul_plan_is_legal(m, k, n, group, bits, dtype):
+    p = QM.plan(m, k, n, group, bits, getattr(torch, dtype))
+    assert p.variant in QM.VARIANTS and p.splits >= 1
+    tensor_ok = ((n * bits // 8) % 16 == 0 and k % 8 == 0
+                 and (group == k or group % 16 == 0))
+    if p.variant == "tiled":
+        assert p.splits == 1 and not tensor_ok
+    else:  # group boundaries on 16-deep k steps, whole 16-byte weight rows
+        assert tensor_ok and p.ksplit % QM.K_STEP == 0  # whole k steps
+        assert (p.splits - 1) * p.ksplit < k <= p.splits * p.ksplit
+        assert (p.variant == "decode") == (m <= QM.DECODE_MAX_M)
+    assert math.prod(p.workspace_shape(m, n)) == (
+        p.splits * m * n if p.splits > 1 else 0)
+    if m == 8 and tensor_ok:  # the [lm] phase's expectations
+        assert p.variant == "decode"
+    if m == 512 and tensor_ok:
+        assert p.variant == "mma"
+
+
+def test_quant_matmul_plan_unaligned_pointers_take_tiled():
+    assert QM.plan(8, 2048, 2048, 2048, 8, torch.float32,
+                   aligned=False).variant == "tiled"
+    assert QM.plan(512, 2048, 2048, 2048, 8, torch.bfloat16,
+                   aligned=False).variant == "tiled"

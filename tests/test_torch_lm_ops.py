@@ -11,6 +11,11 @@ f32 and rtol 2e-2 / atol 2e-1 with bf16 inputs
 (`test_kernels_decode_attention.py`): the sums run in another order.
 Quantization, packing and `kv_quant` are exact.
 
+The arithmetic of the card's tensor-core variant of the quantized matmul
+(integer weights as bf16, x as one or three bf16 terms, per-group f32
+partial sums times the scale) is emulated here and held to the same
+tolerances, against the JAX kernel and the golden.
+
 At full width, the port is held against the golden
 `tests/golden_torch/llama32_1b_lm_ops.npz`, which stores only the JAX
 entry points' outputs (inputs: `tests/torch_lm_cases.py`). Regenerate it:
@@ -260,6 +265,75 @@ def test_lm_from_reference_bf16_cache_and_refusals():
 
 
 # ---------------------------------------------------------------------------
+# the arithmetic of K5's `mma` variant, emulated in torch on the CPU
+# ---------------------------------------------------------------------------
+
+
+def _bf16_terms(x: torch.Tensor):
+    """x as the bf16 terms the mma variant feeds the tensor cores: x itself
+    when it is bf16, else hi, mid, lo (each the bf16 rounding of what the
+    earlier ones left; every remainder is exact in f32)."""
+    if x.dtype == torch.bfloat16:
+        return [x]
+    hi = x.to(torch.bfloat16)
+    r = x - hi.float()
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.float()).to(torch.bfloat16)
+    return [hi, mid, lo]
+
+
+def mma_variant_emulation(x, w_q, w_scale, *, bits):
+    """What the card's mma variant computes: integer weights as bf16 (exact),
+    x as bf16 terms, an f32 sum of the exact products over each scale
+    group, then that partial sum times the group's f32 scale, added up.
+    The tensor cores sum in another order; f32 matmul stands in for it."""
+    q = (Q.unpack_int4(w_q, signed=True) if bits == 4
+         else w_q.to(torch.int32)).to(torch.float32)
+    assert torch.equal(q.to(torch.bfloat16).float(), q)  # exact in bf16
+    terms = _bf16_terms(x)
+    k, g = q.shape[0], w_scale.shape[0]
+    out = torch.zeros((x.shape[0], q.shape[1]), dtype=torch.float32)
+    for i in range(g):
+        rows = slice(i * (k // g), (i + 1) * (k // g))
+        part = sum(t[:, rows].float() @ q[rows] for t in terms)
+        out += part * w_scale[i].float()
+    return out
+
+
+def test_bf16_terms_sum_to_x():
+    x = torch.from_numpy(np.random.default_rng(20).normal(
+        size=(64, 256)).astype(np.float32)) * 3
+    hi, mid, lo = _bf16_terms(x)
+    assert torch.equal(hi.float() + mid.float() + lo.float(), x)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n,bits,gs,bm,bn,bk", [
+    (64, 256, 128, 8, None, 32, 64, 128),
+    (32, 512, 256, 4, 128, 32, 128, 128),
+    (128, 384, 128, 8, 128, 64, 128, 128),
+    (16, 128, 64, 8, 64, 16, 64, 64),
+])
+def test_mma_emulation_matches_jax_kernel(m, k, n, bits, gs, bm, bn, bk,
+                                          dtype):
+    """The mma variant's arithmetic against the JAX Pallas kernel
+    (interpret mode), which rounds w * scale per weight first."""
+    rng = np.random.default_rng(21)
+    x = jnp.asarray(rng.normal(size=(m, k)).astype(np.float32), dtype)
+    w = rng.normal(size=(k, n)).astype(np.float32)
+    wq, sc = RK.quantize_weight_for_matmul(jnp.asarray(w), bits=bits,
+                                           group_size=gs)
+    want = jax_qmm(x, wq, sc, bits=bits, block_m=bm, block_n=bn,
+                   block_k=bk, interpret=True)
+    twq, tsc = lm_from_reference((wq, sc), device="cpu")
+    tx = torch.from_numpy(np.array(x, np.float32)).to(getattr(torch, dtype))
+    got = mma_variant_emulation(tx, twq, tsc, bits=bits)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               **(F32_TOL if dtype == "float32" else
+                                  BF16_TOL))
+
+
+# ---------------------------------------------------------------------------
 # full width, against the golden the JAX entry points wrote
 # ---------------------------------------------------------------------------
 
@@ -281,6 +355,21 @@ def test_fullwidth_linear_matches_golden(golden, scheme, name, k, n):
         torch.from_numpy(C.weight(name, k, n)), bits=bits, group_size=gs)
     x = torch.from_numpy(C.activations(name, 8, k))
     got = K.quantized_linear(x, wq, sc, bits=bits)
+    np.testing.assert_allclose(got.numpy(), golden[f"linear/{scheme}/{name}"],
+                               **F32_TOL)
+
+
+@pytest.mark.parametrize("scheme", C.GOLDEN_SCHEMES)
+@pytest.mark.parametrize("name,k,n", LAYER, ids=[c[0] for c in LAYER])
+def test_fullwidth_mma_emulation_matches_golden(golden, scheme, name, k, n):
+    """The mma variant's arithmetic (x as three bf16 terms, per-group f32
+    partial sums times the scale) on the golden's 8-row f32 inputs, `down`
+    (K = 8192) included, at the JAX tests' f32 tolerance."""
+    bits, gs = C.SCHEMES[scheme]
+    wq, sc = K.quantize_weight_for_matmul(
+        torch.from_numpy(C.weight(name, k, n)), bits=bits, group_size=gs)
+    got = mma_variant_emulation(torch.from_numpy(C.activations(name, 8, k)),
+                                wq, sc, bits=bits)
     np.testing.assert_allclose(got.numpy(), golden[f"linear/{scheme}/{name}"],
                                **F32_TOL)
 
