@@ -16,12 +16,14 @@ last line:
      that input, through the kernel and through its plain version: they
      must be equal (tolerance: exact), and a second call must give the same
      bits; K2's lines name the tile and K slices its `plan` chose. Each
-     prints its time (CUDA events, median of 25, the device's work alone:
-     see `time_ms`), the plain version's, one PyTorch library call's where
-     one computes the same accumulation, the least time the card could
-     take (bytes at 3.35 TB/s or int8 operations at 1979 TOP/s; activations
-     counted at 1 byte a value, since every one lies in [0, 255]), and
-     `call_ms`, the kernel's call with the host's launch cost included;
+     prints its time `ms` (CUDA events around the call, median of 25, the
+     host's wrapper and launch included: see `time_ms`), the plain
+     version's, one PyTorch library call's where one computes the same
+     accumulation, the least time the card could take (bytes at 3.35 TB/s
+     or int8 operations at 1979 TOP/s; activations counted at 1 byte a
+     value, since every one lies in [0, 255]), and `device_ms` and
+     `library_device_ms`, the kernel's and the library call's work on the
+     device alone;
   4. serve: `VisionEngine.from_artifact` on `cuda` serves the 8 images as
      8 requests, with the launch counters set to 0 just before and read
      just after; the logits must equal the JAX package's `run_qnet` logits
@@ -50,9 +52,11 @@ last line:
      `tests/golden_torch/llama32_1b_lm_ops.npz` at the same tolerances. Each
      case prints its time, the plain version's, one library call's
      (`torch.matmul` on the dequantized weight; `scaled_dot_product_attention`
-     on the dequantized cache), and its bound (bytes at 3.35 TB/s or flops
-     at the 989 TFLOP/s dense bf16 peak);
-  7. the kernels' JSON line, the card line, and
+     on the dequantized cache), its bound (bytes at 3.35 TB/s or flops at
+     the 989 TFLOP/s dense bf16 peak), and the kernel's and the library
+     call's device time alone, as in phase 3;
+  7. the kernels' JSON line (with `device_ms` and `library_device_ms`
+     beside the keys the contract names), the card line, and
      {"ok": true, "device": {"platform": "gpu", ...}} as the last line.
 
 Imports nothing of JAX or of the JAX package.
@@ -121,14 +125,14 @@ def digests(act) -> list:
     return [hashlib.sha256(row.tobytes()).hexdigest() for row in u8]
 
 
-def time_ms(fn, reps: int = REPS, device_only: bool = True) -> float:
-    """Median time of one call, CUDA events around each call. With
-    `device_only`, a spin kernel (`torch.cuda._sleep`, about 1 ms) holds the
-    stream while the host enqueues the first event, the call and the
-    second event, so the interval is the device's work alone; a call whose
-    host side outlasts the spin still shows its gaps (the number never
-    falls below the device's time). Without it, the call as the host sees
-    it: the Python wrapper and the launch cost included."""
+def time_ms(fn, reps: int = REPS, device_only: bool = False) -> float:
+    """Median time of one call, CUDA events around each call: the call as
+    the host sees it, its Python wrapper and launch cost included (the
+    `ms` of every kernel line and of the JSON line). With `device_only`, a
+    spin kernel (`torch.cuda._sleep`, about 1 ms) holds the stream while
+    the host enqueues the first event, the call and the second event, so
+    the interval is the device's work alone (`device_ms`); a call whose
+    host side outlasts the spin still shows its gaps."""
     import torch
     for _ in range(3):
         fn()
@@ -222,7 +226,7 @@ def main_path_calls(pq, x):
                     m = h_in.numel() // k_dim
                     xf = h_in.reshape(m, k_dim).to(torch.float32)
                     wf = pop.w_kern.to(torch.float32)
-                    tile, splits = pw_plan(m, k_dim, n_dim)
+                    pw = pw_plan(m, k_dim, n_dim)
                     calls.append((
                         "pointwise_conv_q", op.name,
                         lambda a=args, k=kw: pointwise_conv_q(*a, **k),
@@ -231,7 +235,7 @@ def main_path_calls(pq, x):
                         bytes_moved(h_in.numel(), m * n_dim,
                                     nbytes(*args[1:])),
                         2 * m * k_dim * n_dim,
-                        f" tile={tile} splits={splits}"))
+                        f" tile={pw.tile} splits={pw.splits}"))
                 h_in = cu.run_qop(h_in, pop)
         y, s, z = cu.run_block(y, block, pq, s, z)
     return calls
@@ -257,7 +261,9 @@ def phase_kernels(pq, x):
                              f"different bits")
         ms, plain_ms = time_ms(kern), time_ms(plain)
         lib_ms = time_ms(lib) if lib is not None else None
-        call_ms = time_ms(kern, device_only=False)
+        dev_ms = time_ms(kern, device_only=True)
+        lib_dev_ms = (time_ms(lib, device_only=True) if lib is not None
+                      else None)
         bytes_ms = nb / HBM_BYTES_PER_S * 1e3
         bytes32_ms = nb32 / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / INT8_OPS_PER_S * 1e3
@@ -267,17 +273,20 @@ def phase_kernels(pq, x):
               f"bound_ms={max(bytes_ms, ops_ms):.5f} "
               f"({'bytes' if bytes_ms >= ops_ms else 'operations'}; "
               f"int32 activations: {max(bytes32_ms, ops_ms):.5f}) "
-              f"call_ms={call_ms:.4f}")
-        r = _row(rows, name, err, ms, plain_ms, lib_ms, bytes_ms, ops_ms)
+              f"device_ms={dev_ms:.4f} library_device_ms="
+              f"{'null' if lib_dev_ms is None else f'{lib_dev_ms:.4f}'}")
+        r = _row(rows, name, err, ms, plain_ms, lib_ms, bytes_ms, ops_ms,
+                 dev_ms, lib_dev_ms)
         r["bound32"] += max(bytes32_ms, ops_ms)
-        r["call_ms"] += call_ms
     for name, r in rows.items():
         print(f"[kernels] {name}: ms {r['ms']:.4f} over the micro-batch, "
               f"bound_ms {r['bound']:.5f} (1-byte activations), "
               f"{r['bound32']:.5f} (int32 activations)")
     for name, r in rows.items():
-        print(f"[kernels] {name}: call_ms {r['call_ms']:.4f} over the "
-              f"micro-batch (the host's launch cost included)")
+        print(f"[kernels] {name}: over the micro-batch, library_ms "
+              f"{_opt(r, 'lib_ms')}; device work alone: device_ms "
+              f"{r['dev_ms']:.4f}, library_device_ms "
+              f"{_opt(r, 'lib_dev_ms')}")
     return rows
 
 
@@ -358,7 +367,7 @@ def phase_throughput(imgs, card):
     x = torch.from_numpy(imgs).to(eng.device)
     parts = []
     for stage in eng.stages:
-        ms = time_ms(lambda s=stage, a=x: s.run(a), device_only=False)
+        ms = time_ms(lambda s=stage, a=x: s.run(a))
         parts.append(f"{stage.spec.cu} {ms:.4f}")
         x = stage.run(x)
     print(f"[throughput] device ms per stage at batch 8, CUDA events: "
@@ -416,11 +425,12 @@ def lm_inputs(cfg, dev):
     return linears, decodes
 
 
-def _row(rows, name, err, ms, plain_ms, lib_ms, bytes_ms, ops_ms):
+def _row(rows, name, err, ms, plain_ms, lib_ms, bytes_ms, ops_ms, dev_ms,
+         lib_dev_ms):
     r = rows.setdefault(name, dict(err=0, ms=0.0, plain_ms=0.0, lib_ms=0.0,
                                    has_lib=True, bytes_ms=0.0, ops_ms=0.0,
-                                   bound=0.0, bound32=0.0, call_ms=0.0,
-                                   lib_call_ms=0.0))
+                                   bound=0.0, bound32=0.0, dev_ms=0.0,
+                                   lib_dev_ms=0.0))
     r["err"] = max(r["err"], err)
     r["ms"] += ms
     r["plain_ms"] += plain_ms
@@ -429,7 +439,14 @@ def _row(rows, name, err, ms, plain_ms, lib_ms, bytes_ms, ops_ms):
     r["bytes_ms"] += bytes_ms
     r["ops_ms"] += ops_ms
     r["bound"] += max(bytes_ms, ops_ms)
+    r["dev_ms"] += dev_ms
+    r["lib_dev_ms"] += lib_dev_ms or 0.0
     return r
+
+
+def _opt(r, key: str) -> str:
+    """A library time of a row, or null where a case had no library call."""
+    return f"{r[key]:.4f}" if r["has_lib"] else "null"
 
 
 def _close(got, want, rtol, atol):
@@ -491,9 +508,9 @@ def phase_lm(card):
     golden = dict(np.load(LM_GOLDEN))
     rows, bad, layer = {}, [], {}
     print(f"[lm] {card}: each case against the plain version and the "
-          f"golden; ms = median of {REPS} (CUDA events, device work "
-          f"alone; call_ms with the host's launch cost); bound: bytes at "
-          f"3.35 TB/s, flops at the 989 TFLOP/s dense bf16 peak")
+          f"golden; ms = median of {REPS} (CUDA events, the host's launch "
+          f"cost included; device_ms the device's work alone); bound: "
+          f"bytes at 3.35 TB/s, flops at the 989 TFLOP/s dense bf16 peak")
     for (label, x, wq, sc, bits, gold), y, (variant,) in zip(linears, outs,
                                                               took):
         dtype = str(x.dtype).split(".")[1]
@@ -514,28 +531,24 @@ def phase_lm(card):
         ms = time_ms(lambda: quant_matmul(x, wq, sc, bits=bits))
         plain_ms = time_ms(lambda: quant_matmul_plain(x, wq, sc, bits=bits))
         lib_ms = time_ms(lambda: torch.matmul(xf, wdq))
-        call_ms = time_ms(lambda: quant_matmul(x, wq, sc, bits=bits),
-                          device_only=False)
-        lib_call_ms = time_ms(lambda: torch.matmul(xf, wdq),
-                              device_only=False)
+        dev_ms = time_ms(lambda: quant_matmul(x, wq, sc, bits=bits),
+                         device_only=True)
+        lib_dev_ms = time_ms(lambda: torch.matmul(xf, wdq), device_only=True)
         del wdq, xf
         (m, k), n = x.shape, y.shape[1]
         bytes_ms = (nbytes(x, wq, sc) + 4 * m * n) / HBM_BYTES_PER_S * 1e3
         ops_ms = 2 * m * k * n / BF16_FLOPS_PER_S * 1e3
-        for r in [_row(rows, "quant_matmul", err, ms, plain_ms, lib_ms,
-                       bytes_ms, ops_ms)] + (
-                [] if label.startswith("lm_head/") else
-                [_row(layer, label.split("/", 1)[1], err, ms, plain_ms,
-                      lib_ms, bytes_ms, ops_ms)]):
-            r["call_ms"] += call_ms
-            r["lib_call_ms"] += lib_call_ms
+        times = (ms, plain_ms, lib_ms, bytes_ms, ops_ms, dev_ms, lib_dev_ms)
+        _row(rows, "quant_matmul", err, *times)
+        if not label.startswith("lm_head/"):
+            _row(layer, label.split("/", 1)[1], err, *times)
         splits = plan(m, k, n, k // sc.shape[0], bits, x.dtype).splits
         print(f"  quant_matmul[{label}] ({m},{k})x({k},{n}) variant={variant}"
               f" splits={splits} max_abs_err={err:.3g} golden_err={gtxt} ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
               f"bound_ms={max(bytes_ms, ops_ms):.5f} "
               f"({'bytes' if bytes_ms >= ops_ms else 'operations'}) "
-              f"call_ms={call_ms:.4f} library_call_ms={lib_call_ms:.4f}")
+              f"device_ms={dev_ms:.4f} library_device_ms={lib_dev_ms:.4f}")
     for (label, q, cache, kv_len, gold), y in zip(decodes, douts):
         b, _, h, dh = q.shape
         kv = cache["k"].shape[2]
@@ -561,22 +574,26 @@ def phase_lm(card):
         mask = (torch.arange(kd.shape[2], device=dev) < n)[None, None, None]
         ms = time_ms(lambda: decode_attention(*args))
         plain_ms = time_ms(lambda: decode_attention_plain(*args))
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        sdpa = (lambda: F.scaled_dot_product_attention(
             qs, kd, vd, attn_mask=mask, enable_gqa=True))
-        del kd, vd
+        lib_ms = time_ms(sdpa)
+        dev_ms = time_ms(lambda: decode_attention(*args), device_only=True)
+        lib_dev_ms = time_ms(sdpa, device_only=True)
+        del kd, vd, sdpa
         per_pos = b * kv * dh * cache["k"].element_size() * 2 + (
             b * kv * 2 * cache["k_scale"].element_size()
             if "k_scale" in cache else 0)
         bytes_ms = (2 * nbytes(q) + n * per_pos) / HBM_BYTES_PER_S * 1e3
         ops_ms = 4 * b * h * n * dh / BF16_FLOPS_PER_S * 1e3
         _row(rows, "decode_attention", err, ms, plain_ms, lib_ms, bytes_ms,
-             ops_ms)
+             ops_ms, dev_ms, lib_dev_ms)
         print(f"  decode_attention[{label}] q {tuple(q.shape)} cache "
               f"{tuple(cache['k'].shape)} {cache['k'].dtype} kv_len {n} "
               f"max_abs_err={err:.3g} golden_err={gerr:.3g} ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
               f"bound_ms={max(bytes_ms, ops_ms):.5f} "
-              f"({'bytes' if bytes_ms >= ops_ms else 'operations'})")
+              f"({'bytes' if bytes_ms >= ops_ms else 'operations'}) "
+              f"device_ms={dev_ms:.4f} library_device_ms={lib_dev_ms:.4f}")
     for how, r in layer.items():
         print(f"[lm] one decoder layer's 7 linears, {how}: ms {r['ms']:.4f}, "
               f"bound_ms {r['bound']:.5f}, plain_ms {r['plain_ms']:.4f}, "
@@ -585,11 +602,12 @@ def phase_lm(card):
         print(f"[lm] {name}: ms {r['ms']:.4f} over its "
               f"{counts[name]} cases, bound_ms {r['bound']:.5f}, plain_ms "
               f"{r['plain_ms']:.4f}, library_ms {r['lib_ms']:.4f}")
-    for how, r in list(layer.items()) + [
-            (f"all {counts['quant_matmul']} cases", rows["quant_matmul"])]:
-        print(f"[lm] quant_matmul, {how}, the host's launch cost included: "
-              f"call_ms {r['call_ms']:.4f}, library_call_ms "
-              f"{r['lib_call_ms']:.4f}")
+    for how, r in [(f"one decoder layer's 7 linears, {how}", r)
+                   for how, r in layer.items()] + [
+            (f"{name}, its {counts[name]} cases", r)
+            for name, r in rows.items()]:
+        print(f"[lm] {how}, the device's work alone: device_ms "
+              f"{r['dev_ms']:.4f}, library_device_ms {r['lib_dev_ms']:.4f}")
     if bad:
         raise SystemExit(f"[lm] out of tolerance: {', '.join(bad)}")
     return rows, counts
@@ -695,7 +713,9 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"],
             "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"]
             else "operations",
-            "library_ms": r["lib_ms"] if r["has_lib"] else None})
+            "library_ms": r["lib_ms"] if r["has_lib"] else None,
+            "device_ms": r["dev_ms"],
+            "library_device_ms": r["lib_dev_ms"] if r["has_lib"] else None})
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

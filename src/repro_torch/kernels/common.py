@@ -13,7 +13,8 @@ correction round(acc * mult + zcorr) rounds differently: ROADMAP F4).
 Rounding is half to even; the multiply is one f32 rounding.
 
 Also here: the SAME padding arithmetic the kernels and the reference ops
-share, and the argument checks every kernel wrapper makes.
+share, the argument checks every kernel wrapper makes, and what a wrapper
+hands its launch: the current stream, and a workspace reused across calls.
 """
 from __future__ import annotations
 
@@ -49,4 +50,30 @@ def check_tensor(t: torch.Tensor, dtype, name: str, device=None,
         raise ValueError(f"{name} must be contiguous")
 
 
-__all__ = ["requant_clip", "same_pad_amount", "check_tensor"]
+def raw_stream(t: torch.Tensor) -> int:
+    """The current CUDA stream of `t`'s device, as the handle a launch
+    takes (`torch.cuda.current_stream(...).cuda_stream` without building a
+    Stream object: a few microseconds a call less)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+_workspaces: dict = {}
+
+
+def workspace(kernel: str, dtype, numel: int, t: torch.Tensor,
+              stream: int) -> torch.Tensor:
+    """A buffer of at least `numel` values of `dtype` on `t`'s device for
+    the launches of `kernel` on `stream`. The kernel is done with it before
+    the next launch on that stream begins, so one buffer a (kernel, device,
+    stream) serves every call, and a call allocates nothing once it is
+    large enough. It grows and is kept; it never shrinks."""
+    key = (kernel, t.get_device(), stream)
+    buf = _workspaces.get(key)
+    if buf is None or buf.numel() < numel:
+        buf = _workspaces[key] = torch.empty(numel, dtype=dtype,
+                                             device=t.device)
+    return buf
+
+
+__all__ = ["requant_clip", "same_pad_amount", "check_tensor", "raw_stream",
+           "workspace"]

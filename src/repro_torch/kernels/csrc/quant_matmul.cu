@@ -509,11 +509,18 @@ qmm_mma(const XT* __restrict__ x, const uint8_t* __restrict__ w,
 
 enum Variant { TILED = 0, DECODE = 1, MMA = 2 };
 
+// Allows `kern` more than 48 KiB of dynamic shared memory, once a device:
+// `done` (one per kernel) has a bit for each device already set.
 template <typename KERN>
-int set_smem(KERN kern, size_t bytes) {
+int set_smem(KERN kern, size_t bytes, unsigned& done) {
   if (bytes <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(
+  int dev = 0;
+  if (cudaError_t e = cudaGetDevice(&dev)) return (int)e;
+  if (dev < 32 && (done >> dev & 1u)) return 0;
+  const cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e == cudaSuccess && dev < 32) done |= 1u << dev;
+  return (int)e;
 }
 
 template <int BITS, typename XT, typename ST>
@@ -559,12 +566,14 @@ int launch_mma(const void* x, const void* w, const void* scale, int s_bf16,
   const uint8_t* wp = static_cast<const uint8_t*>(w);
   if (group == K) {
     auto kern = qmm_mma<BM, BN, WM, BITS, XT, false>;
-    if (int e = set_smem(kern, smem)) return e;
+    static unsigned done = 0;
+    if (int e = set_smem(kern, smem, done)) return e;
     kern<<<grid, MMA_NT, smem, st>>>(xp, wp, scale, s_bf16, dst, M, K, N,
                                      group, ksplit);
   } else {
     auto kern = qmm_mma<BM, BN, WM, BITS, XT, true>;
-    if (int e = set_smem(kern, smem)) return e;
+    static unsigned done = 0;
+    if (int e = set_smem(kern, smem, done)) return e;
     kern<<<grid, MMA_NT, smem, st>>>(xp, wp, scale, s_bf16, dst, M, K, N,
                                      group, ksplit);
   }

@@ -28,8 +28,9 @@ takes weight rows that are not a multiple of 16 bytes and groups such as
 8.
 
 decode and mma also need 16-byte aligned x, w_q and out. Where they split
-K, the wrapper allocates an f32 workspace [splits, M, N] and the kernel
-adds the partials in a fixed order, so equal inputs give equal bits.
+K, the partials go to an f32 workspace of splits * M * N values, kept
+across calls (`common.workspace`), and a second pass adds them in a
+fixed order, so equal inputs give equal bits.
 `quant_matmul.launches` counts calls that launched (one each, a reduce
 pass included) and `quant_matmul.variants` counts them by variant.
 """
@@ -43,12 +44,15 @@ import torch
 
 from repro_torch.core.quant import unpack_int4
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import check_tensor as _check
+from repro_torch.kernels.common import (
+    check_tensor as _check, raw_stream as _raw_stream,
+    workspace as _workspace)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 5 + [_I] * 10 + [_P]
 _CODE = {torch.float32: 0, torch.bfloat16: 1}
 VARIANTS = ("tiled", "decode", "mma")  # the kernel's variant codes 0, 1, 2
+_VARIANT = {v: i for i, v in enumerate(VARIANTS)}
 SMS = 132  # streaming multiprocessors of an H100 SXM
 DECODE_MAX_M = 16
 DECODE_BN, MMA_BM, MMA_BN, K_STEP = 256, 128, 128, 32  # tiles, k a step
@@ -62,9 +66,9 @@ class Plan(NamedTuple):
     splits: int = 1
     ksplit: int = 0
 
-    def workspace_shape(self, m: int, n: int):
-        """The f32 partials the wrapper allocates: none for one split."""
-        return (self.splits, m, n) if self.splits > 1 else (0,)
+    def workspace_numel(self, m: int, n: int) -> int:
+        """The f32 partials a launch needs: none for one split."""
+        return self.splits * m * n if self.splits > 1 else 0
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -140,30 +144,30 @@ def quant_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
                  *, bits: int) -> torch.Tensor:
     """x [M, K] f32/bf16, w_q int8 [K, N] or uint8 [K, N/2], w_scale [G, N]
     f32/bf16 -> f32 [M, N]."""
-    if x.device.type == "cpu":
-        return quant_matmul_plain(x, w_q, w_scale, bits=bits)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return quant_matmul_plain(x, w_q, w_scale, bits=bits)
         raise ValueError(f"quant_matmul: no kernel for {x.device}")
     m, k, n, g = _shapes(x, w_q, w_scale, bits)
     if x.dtype not in _CODE or w_scale.dtype not in _CODE:
         raise TypeError(f"x {x.dtype}, w_scale {w_scale.dtype}: the kernel "
                         f"takes float32 or bfloat16")
+    dev = x.device
     _check(x, x.dtype, "x")
-    _check(w_q, torch.uint8 if bits == 4 else torch.int8, "w_q", x.device)
-    _check(w_scale, w_scale.dtype, "w_scale", x.device)
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    _check(w_q, torch.uint8 if bits == 4 else torch.int8, "w_q", dev)
+    _check(w_scale, w_scale.dtype, "w_scale", dev)
+    out = x.new_empty((m, n), dtype=torch.float32)
     if m == 0 or n == 0:
         return out
-    aligned = (x.data_ptr() | w_q.data_ptr() | out.data_ptr()) % 16 == 0
-    p = plan(m, k, n, k // g, bits, x.dtype, aligned=aligned)
-    work = torch.empty(p.workspace_shape(m, n), dtype=torch.float32,
-                       device=x.device) if p.splits > 1 else None
+    xp, wp, op = x.data_ptr(), w_q.data_ptr(), out.data_ptr()
+    p = plan(m, k, n, k // g, bits, x.dtype, aligned=(xp | wp | op) % 16 == 0)
+    stream = _raw_stream(x)
+    work = _workspace("quant_matmul", torch.float32, p.workspace_numel(m, n),
+                      x, stream).data_ptr() if p.splits > 1 else None
     fn = _build.function("quant_matmul", "quant_matmul_launch", _ARGTYPES)
-    err = fn(x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
-             work.data_ptr() if work is not None else None, m, k, n, k // g,
-             bits, _CODE[x.dtype], _CODE[w_scale.dtype],
-             VARIANTS.index(p.variant), p.splits, p.ksplit,
-             torch.cuda.current_stream(x.device).cuda_stream)
+    err = fn(xp, wp, w_scale.data_ptr(), op, work, m, k, n, k // g, bits,
+             _CODE[x.dtype], _CODE[w_scale.dtype], _VARIANT[p.variant],
+             p.splits, p.ksplit, stream)
     if err:
         raise RuntimeError(f"quant_matmul launch failed: CUDA error {err}")
     quant_matmul.launches += 1

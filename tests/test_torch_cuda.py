@@ -114,7 +114,7 @@ def test_pointwise_split_k(dev, shape, cin, cout, block_k):
     w = _rand(rng, dev, (cin, cout), -127, 128, torch.int8)
     mult, zpc, bias = _consts(rng, dev, cout, -9, w.to(torch.int32).sum(0))
     m = x.numel() // cin
-    assert pw_plan(m, cin, cout, block_k=block_k)[1] > 1
+    assert pw_plan(m, cin, cout, block_k=block_k).splits > 1
     K.reset_launch_counts()
     got = pointwise_conv_q(x, w, mult, zpc, bias, qmax=255, block_k=block_k)
     assert pointwise_conv_q.launches == 1
@@ -199,6 +199,30 @@ def test_served_golden_on_card(dev, model, bits):
                                      "decode_attention": 0}
     np.testing.assert_array_equal(np.stack([res[r].logits for r in rids]),
                                   fix["logits"])
+
+
+@pytest.mark.parametrize("model,bits", [("mobilenet_v2", 8),
+                                        ("efficientnet_compact", 4)])
+def test_pointwise_inputs_lie_in_kernel_domain_on_card(dev, model, bits,
+                                                       monkeypatch):
+    """K2 narrows its int32 x to u8 unchecked: every activation the served
+    route hands it on the card lies in its domain [0, 255]."""
+    from repro_torch.core.qnet import load_qnet
+    from repro_torch.serve.vision.stages import compile_stages
+
+    seen, real = [], K.pointwise_conv_q
+
+    def spy(x_q, *args, **kw):
+        seen.append((int(x_q.min()), int(x_q.max())))
+        return real(x_q, *args, **kw)
+
+    monkeypatch.setattr(K, "pointwise_conv_q", spy)
+    base = os.path.join(GOLDEN, f"{model}_act{bits}")
+    x = torch.from_numpy(np.load(base + ".npz")["input"]).to(dev)
+    for stage in compile_stages(load_qnet(base + ".qnet"), device=dev):
+        x = stage.run(x)
+    assert len(seen) >= 3
+    assert all(0 <= lo and hi <= 255 for lo, hi in seen), seen
 
 
 # ---------------------------------------------------------------------------

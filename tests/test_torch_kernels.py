@@ -9,7 +9,6 @@ drive the wrappers' CPU path. At the end, K2's and K5's `plan` (which
 kernel variant, tile and K slices a launch takes on the card) is checked
 for every shape the main paths and the card tests give them."""
 import itertools
-import math
 import os
 
 import numpy as np
@@ -267,25 +266,55 @@ def _pw_cases():
 @pytest.mark.parametrize("m,k,n,tile", _pw_cases(), ids=str)
 def test_pointwise_plan_is_legal(m, k, n, tile):
     bm, bn, bk = tile or (None, None, None)
-    got, splits = PW.plan(m, k, n, block_m=bm, block_n=bn, block_k=bk)
+    p = PW.plan(m, k, n, block_m=bm, block_n=bn, block_k=bk)
+    got, splits, ksplit = p
     assert got[0] in PW.BLOCKS_M and got[1] in PW.BLOCKS_N
     assert got[2] in PW.BLOCKS_K
     assert tile is None or all(t in (None, g) for t, g in zip(tile, got))
-    ksplit = PW.ksplit_of(k, got, splits)
     assert splits >= 1 and ksplit % got[2] == 0  # whole k steps
     assert (splits - 1) * ksplit < k <= splits * ksplit  # none empty
     if splits > 1:  # only where the tiles leave SMs idle
         assert -(-m // got[0]) * -(-n // got[1]) < PW.SMS
-    assert math.prod(PW.workspace_shape(m, n, splits)) == (
-        splits * m * n if splits > 1 else 0)
+    assert p.workspace_numel(m, n) == (splits * m * n if splits > 1 else 0)
 
 
 def test_pointwise_plan_main_path_choices():
     """MobileNetV2's three launches a micro-batch of 8: the Head's and the
     Tail's in one slice, the Classifier's 8 rows split along K."""
-    assert PW.plan(100352, 32, 16) == ((64, 16, 32), 1)
-    assert PW.plan(392, 320, 1280)[1] == 1
-    assert PW.plan(8, 1280, 1000)[1] > 1
+    assert PW.plan(100352, 32, 16)[:2] == ((64, 16, 32), 1)
+    assert PW.plan(392, 320, 1280).splits == 1
+    assert PW.plan(8, 1280, 1000).splits > 1
+
+
+def _record_pointwise_inputs(monkeypatch):
+    """Route `ops`' pointwise calls through a spy that keeps each input's
+    (min, max); returns that list."""
+    seen, real = [], K.pointwise_conv_q
+
+    def spy(x_q, *args, **kw):
+        seen.append((int(x_q.min()), int(x_q.max())))
+        return real(x_q, *args, **kw)
+
+    monkeypatch.setattr(K, "pointwise_conv_q", spy)
+    return seen
+
+
+@pytest.mark.parametrize("path", _VISION_QNETS[1:], ids=os.path.basename)
+def test_pointwise_inputs_lie_in_kernel_domain(path, monkeypatch):
+    """On the card K2 narrows its int32 x to u8 unchecked, so its domain is
+    x in [0, 255]. Every activation the served route hands it (after the
+    input quantizer, `requant_clip`, `residual_add`, `mean_round` and the
+    SE gate) lies there, for each golden net on its fixture's images."""
+    from repro_torch.core.qnet import load_qnet
+    from repro_torch.serve.vision.stages import compile_stages
+
+    seen = _record_pointwise_inputs(monkeypatch)
+    x = torch.from_numpy(np.load(path[:-len(".qnet")] + ".npz")["input"])
+    for stage in compile_stages(load_qnet(path), body_fast_path="on",
+                                op_kernels="on", device="cpu"):
+        x = stage.run(x)
+    assert len(seen) >= 3  # Head, Tail and Classifier at least
+    assert all(0 <= lo and hi <= 255 for lo, hi in seen), seen
 
 
 def _qmm_cases():
@@ -324,7 +353,7 @@ def test_quant_matmul_plan_is_legal(m, k, n, group, bits, dtype):
         assert tensor_ok and p.ksplit % QM.K_STEP == 0  # whole k steps
         assert (p.splits - 1) * p.ksplit < k <= p.splits * p.ksplit
         assert (p.variant == "decode") == (m <= QM.DECODE_MAX_M)
-    assert math.prod(p.workspace_shape(m, n)) == (
+    assert p.workspace_numel(m, n) == (
         p.splits * m * n if p.splits > 1 else 0)
     if m == 8 and tensor_ok:  # the [lm] phase's expectations
         assert p.variant == "decode"
