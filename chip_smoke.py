@@ -15,7 +15,9 @@ last line:
      irb0/project, irb1..irb16, tail/pw, classifier/fc) is run on exactly
      that input, through the kernel and through its plain version: they
      must be equal (tolerance: exact), and a second call must give the same
-     bits; K2's lines name the tile and K slices its `plan` chose. Each
+     bits; K2's lines name the tile and K slices its `plan` chose, K4's the
+     tile and E slices (`splits`, `eslice`), and the phase fails unless
+     every K4 launch at 14x14 and 7x7 took the split-E variant. Each
      prints its time `ms` (CUDA events around the call, median of 25, the
      host's wrapper and launch included: see `time_ms`), the plain
      version's, one PyTorch library call's where one computes the same
@@ -26,7 +28,8 @@ last line:
      device alone;
   4. serve: `VisionEngine.from_artifact` on `cuda` serves the 8 images as
      8 requests, with the launch counters set to 0 just before and read
-     just after; the logits must equal the JAX package's `run_qnet` logits
+     just after (K4's by variant too: the 11 launches at 14x14 and 7x7
+     split E, the 5 at 56x56 and 28x28 do not); the logits must equal the JAX package's `run_qnet` logits
      stored in the fixture bit for bit, every CU stage's output its stored
      digest, and the port's `cu.run_qnet` on the card the same logits;
   5. throughput: a closed loop over buckets 1/2/4/8 and a one-request-at-a-
@@ -94,6 +97,9 @@ KERNELS = {
 EXPECTED_LAUNCHES = {"pointwise_conv_q": 3, "depthwise_conv_q": 1,
                      "fused_irb_q": 16, "quant_matmul": 0,
                      "decode_attention": 0}
+# K4's launches a micro-batch by variant: E split at 14x14 and 7x7
+EXPECTED_IRB_VARIANTS = {"single": 5, "split_e": 11}
+SPLIT_E_HW = (14, 7)  # output sizes whose K4 launches must split E
 LM_GOLDEN = os.path.join(ROOT, "tests", "golden_torch",
                          "llama32_1b_lm_ops.npz")
 # (rtol, atol) of the JAX tests (test_kernels_quant_matmul.py:33, :48;
@@ -173,7 +179,8 @@ def main_path_calls(pq, x):
     from repro_torch.kernels import ops as K
     from repro_torch.kernels.depthwise_conv import (
         depthwise_conv_q, depthwise_conv_q_plain)
-    from repro_torch.kernels.fused_irb import fused_irb_q, fused_irb_q_plain
+    from repro_torch.kernels.fused_irb import (
+        fused_irb_q, fused_irb_q_plain, plan as irb_plan)
     from repro_torch.kernels.pointwise_conv import (
         plan as pw_plan, pointwise_conv_q, pointwise_conv_q_plain)
 
@@ -190,13 +197,17 @@ def main_path_calls(pq, x):
             ho, wo = -(-h // kw["stride"]), -(-w // kw["stride"])
             ops = 2 * b * (h * w * c * e_ch + ho * wo * e_ch * kk
                            + ho * wo * e_ch * c_out)
+            irb = irb_plan(b, h, w, c, e_ch, c_out, kw["kernel"],
+                           kw["stride"])
             calls.append((
                 "fused_irb_q", block.name,
                 lambda a=xin, t=tensors, k=kw: fused_irb_q(a, *t, **k),
                 lambda a=xin, t=tensors, k=kw: fused_irb_q_plain(a, *t, **k),
                 None,
                 bytes_moved(xin.numel(), b * ho * wo * c_out,
-                            nbytes(*tensors)), ops, ""))
+                            nbytes(*tensors)), ops,
+                f" tile={irb.tile} splits={irb.splits} "
+                f"eslice={irb.eslice}"))
         else:
             h_in = y
             for op in block.ops:
@@ -244,14 +255,24 @@ def main_path_calls(pq, x):
 def phase_kernels(pq, x):
     import torch
 
+    from repro_torch.kernels.fused_irb import fused_irb_q
+
     print("[kernels] each kernel against its plain version on the main "
           "path's inputs, batch 8 (tolerance: exact), called twice (the "
           "same bits)")
     rows = {}
     for name, label, kern, plain, lib, (nb, nb32), ops, note in \
             main_path_calls(pq, x):
-        got, again, want = kern(), kern(), plain()
+        before = dict(fused_irb_q.variants)
+        got = kern()
+        took = [v for v, n in fused_irb_q.variants.items() if n != before[v]]
+        again, want = kern(), plain()
         torch.cuda.synchronize()
+        if name == "fused_irb_q" and got.shape[1] in SPLIT_E_HW and \
+                took != ["split_e"]:
+            raise SystemExit(f"[kernels] {name}[{label}] at "
+                             f"{got.shape[1]}x{got.shape[2]} took {took}, "
+                             f"not the split-E variant")
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
         if got.shape != want.shape or err != 0:
             raise SystemExit(f"[kernels] {name}[{label}] differs from its "
@@ -296,8 +317,13 @@ def phase_serve(imgs, fix):
 
     from repro_torch.core import cu
     from repro_torch.kernels import ops as K
+    from repro_torch.kernels.fused_irb import fused_irb_q
     from repro_torch.serve.vision import VisionEngine
 
+    if (EXPECTED_LAUNCHES["depthwise_conv_q"],
+            EXPECTED_LAUNCHES["fused_irb_q"]) != (1, 16):
+        raise SystemExit(f"[serve] EXPECTED_LAUNCHES {EXPECTED_LAUNCHES} "
+                         f"no longer reads depthwise 1, fused IRB 16")
     eng = VisionEngine.from_artifact(FIXTURE + ".qnet", device="cuda",
                                      buckets=(8,))
     eng.warmup()
@@ -305,13 +331,19 @@ def phase_serve(imgs, fix):
     rids = [eng.submit(img) for img in imgs]
     res = eng.run()
     counts = K.launch_counts()
+    irb_variants = dict(fused_irb_q.variants)
     stats = eng.stats()
-    print(f"[serve] launch counts {counts}; micro-batches "
-          f"{stats.micro_batches}; stage invocations "
-          f"{stats.stage_invocations}")
+    print(f"[serve] launch counts {counts}; fused_irb_q by variant "
+          f"{irb_variants}; micro-batches {stats.micro_batches}; stage "
+          f"invocations {stats.stage_invocations}")
     want = {k: v * stats.micro_batches for k, v in EXPECTED_LAUNCHES.items()}
     if counts != want:
         raise SystemExit(f"[serve] launches {counts} != expected {want}")
+    want = {k: v * stats.micro_batches
+            for k, v in EXPECTED_IRB_VARIANTS.items()}
+    if irb_variants != want:
+        raise SystemExit(f"[serve] fused_irb_q variants {irb_variants} != "
+                         f"expected {want}")
     logits = np.stack([res[r].logits for r in rids])
     n_diff = int(np.sum(logits != fix["logits"]))
     print(f"[serve] {len(rids)} images: {n_diff} of {logits.size} logits "

@@ -36,26 +36,6 @@ __device__ __forceinline__ void mma_u8s8(int (&c)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// the low bytes of four int32 -> one word, first value in the low byte
-__device__ __forceinline__ unsigned narrow4(int4 v) {
-  return __byte_perm(__byte_perm(v.x, v.y, 0x0040),
-                     __byte_perm(v.z, v.w, 0x0040), 0x5410);
-}
-
-// a 4 x 4 byte block: rows r[e] (4 columns each) -> columns c[j] (4 rows
-// each, first row in the low byte)
-__device__ __forceinline__ void transpose4x4(const unsigned (&r)[4],
-                                             unsigned (&c)[4]) {
-  const unsigned t0 = __byte_perm(r[0], r[1], 0x5140);  // col 0, 1 of r0 r1
-  const unsigned t1 = __byte_perm(r[2], r[3], 0x5140);
-  const unsigned t2 = __byte_perm(r[0], r[1], 0x7362);  // col 2, 3 of r0 r1
-  const unsigned t3 = __byte_perm(r[2], r[3], 0x7362);
-  c[0] = __byte_perm(t0, t1, 0x5410);
-  c[1] = __byte_perm(t0, t1, 0x7632);
-  c[2] = __byte_perm(t2, t3, 0x5410);
-  c[3] = __byte_perm(t2, t3, 0x7632);
-}
-
 // Warps: WM along M (16-row strips, 1 or 2 m16 tiles each), WN along N.
 template <int BM, int BN>
 struct Warps {
@@ -112,7 +92,7 @@ pw_kernel(const int* __restrict__ x, const int8_t* __restrict__ w,
       if (m < M && k < k1) {
         const int* src = x + m * K + k;
         if (vec_x) {
-          word = narrow4(*reinterpret_cast<const int4*>(src));
+          word = reprotorch::narrow4(*reinterpret_cast<const int4*>(src));
         } else {
 #pragma unroll
           for (int e = 0; e < 4; ++e)
@@ -138,7 +118,7 @@ pw_kernel(const int* __restrict__ x, const int8_t* __restrict__ w,
           r[e] = (n < N && k + e < k1)
                      ? *reinterpret_cast<const unsigned*>(w + (long)(k + e) * N + n)
                      : 0u;
-        transpose4x4(r, c);
+        reprotorch::transpose4x4(r, c);
 #pragma unroll
         for (int j = 0; j < 4; ++j) ws[(4 * cg + j) * RW + q] = c[j];
       }

@@ -10,6 +10,9 @@ not: ROADMAP F4; with zpc = 0 and zcorr = 0 the two coincide).
 `depthwise_conv_q` launches `csrc/depthwise_conv.cu` for a CUDA tensor and
 runs the plain PyTorch version `depthwise_conv_q_plain` for a CPU tensor;
 it raises for anything else. `depthwise_conv_q.launches` counts launches.
+On the card a thread computes a 2 x 4 patch of outputs for 4 channels
+(16-byte loads; one channel where C % 4 != 0), with 32-bit offsets within
+an image: an image of x or of the output must hold fewer than 2^31 values.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from repro_torch.core.integer_ops import int_depthwise_shifts
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (
     check_tensor as _check,
+    raw_stream as _raw_stream,
     requant_clip,
     same_pad_amount,
 )
@@ -60,13 +64,15 @@ def depthwise_conv_q(x_q: torch.Tensor, w_q: torch.Tensor, mult: torch.Tensor,
     _check(bias_q, torch.int32, "bias_q", dev, c)
     pad_t, _, ho = same_pad_amount(h, kernel, stride)
     pad_l, _, wo = same_pad_amount(w, kernel, stride)
-    out = torch.empty((b, ho, wo, c), dtype=torch.int32, device=dev)
+    if max(h * w, ho * wo) * c >= 2 ** 31:
+        raise ValueError(f"depthwise_conv_q: an image of {h}x{w}x{c} "
+                         f"exceeds 32-bit offsets")
+    out = x_q.new_empty((b, ho, wo, c))  # int32, as x_q: checked above
     fn = _build.function("depthwise_conv", "depthwise_conv_q_launch",
                          _ARGTYPES)
     err = fn(x_q.data_ptr(), w_q.data_ptr(), mult.data_ptr(), zpc.data_ptr(),
              bias_q.data_ptr(), out.data_ptr(), b, h, w, c, ho, wo, pad_t,
-             pad_l, kernel, stride, qmax,
-             torch.cuda.current_stream(dev).cuda_stream)
+             pad_l, kernel, stride, qmax, _raw_stream(x_q))
     if err:
         raise RuntimeError(f"depthwise_conv_q launch failed: CUDA error {err}")
     depthwise_conv_q.launches += 1

@@ -22,9 +22,9 @@ over a KV-cache dict through `decode_attention.decode_attention`). No
 model calls them yet: the JAX LM computes its linears and attention in
 plain jnp, and so will the port's.
 
-`launch_counts()` reads the kernels' launch counters; K2 and K5 also
+`launch_counts()` reads the kernels' launch counters; K2, K4 and K5 also
 count their launches by variant (`pointwise_conv_q.variants`,
-`quant_matmul.variants`).
+`fused_irb_q.variants`, `quant_matmul.variants`).
 """
 from __future__ import annotations
 

@@ -2,7 +2,7 @@
 over geometries the main path does not reach (odd sizes, 5x5, stride 2,
 nonzero zero points, residual, ragged tiles, every pointwise tile), and the
 served golden route on the card. Exact equality for the integer kernels. The split-K,
-variant and determinism cases check `plan`'s choices through the
+split-E, variant and determinism cases check `plan`'s choices through the
 kernels' per-variant counters.
 The float LM kernels sum in another order than their plain versions: the
 quantized matmul is held at rtol 1e-5 / atol 1e-3 and decode attention at
@@ -29,6 +29,7 @@ from repro_torch.kernels.depthwise_conv import (
     depthwise_conv_q,
     depthwise_conv_q_plain,
 )
+from repro_torch.kernels import fused_irb as FI
 from repro_torch.kernels.fused_irb import fused_irb_q, fused_irb_q_plain
 from repro_torch.kernels.pointwise_conv import (
     BLOCKS_K,
@@ -140,7 +141,11 @@ def test_pointwise_extreme_inputs(dev, value, shape, cin, cout):
 
 @pytest.mark.parametrize("h,w,c,k,s", [
     (8, 8, 16, 3, 1), (11, 13, 8, 3, 2), (12, 12, 32, 5, 1), (10, 9, 24, 5, 2),
-    (112, 112, 32, 3, 1), (56, 56, 144, 3, 2)])
+    (112, 112, 32, 3, 1), (56, 56, 144, 3, 2),
+    # C % 4 != 0 (one channel a thread), W not a multiple of the 4-wide run
+    (9, 13, 17, 3, 1), (9, 13, 17, 3, 2), (10, 11, 17, 5, 1),
+    (10, 11, 17, 5, 2), (7, 9, 3, 3, 1), (7, 9, 3, 3, 2), (8, 6, 3, 5, 1),
+    (8, 6, 3, 5, 2), (12, 10, 32, 3, 1), (5, 7, 8, 5, 1)])
 def test_depthwise(dev, h, w, c, k, s):
     rng = np.random.default_rng(2)
     x = _rand(rng, dev, (2, h, w, c), 0, 256, torch.int32)
@@ -149,6 +154,26 @@ def test_depthwise(dev, h, w, c, k, s):
     kw = dict(kernel=k, stride=s, qmax=255)
     _equal(depthwise_conv_q(x, wq, mult, zpc, bias, **kw),
            depthwise_conv_q_plain(x, wq, mult, zpc, bias, **kw))
+
+
+def _dw_case(dev, shape, k, seed=2):
+    rng = np.random.default_rng(seed)
+    x = _rand(rng, dev, shape, 0, 256, torch.int32)
+    wq = _rand(rng, dev, (k, k, shape[-1]), -127, 128, torch.int8)
+    consts = _consts(rng, dev, shape[-1], 5, wq.to(torch.int32).sum((0, 1)))
+    return x, wq, *consts
+
+
+def test_depthwise_head_batch8(dev):
+    """The Head's launch at batch 8 (8 x 112 x 112 x 32, 3x3, stride 1),
+    one launch, equal bits over two calls."""
+    args = _dw_case(dev, (8, 112, 112, 32), 3)
+    kw = dict(kernel=3, stride=1, qmax=255)
+    K.reset_launch_counts()
+    got = depthwise_conv_q(*args, **kw)
+    assert depthwise_conv_q.launches == 1
+    _equal(got, depthwise_conv_q_plain(*args, **kw))
+    _equal(depthwise_conv_q(*args, **kw), got)
 
 
 @pytest.mark.parametrize("h,w,c,e,co,k,s,res", [
@@ -160,6 +185,10 @@ def test_depthwise(dev, h, w, c, k, s):
     (10, 10, 16, 96, 40, 5, 2, False),
     (7, 7, 160, 960, 320, 3, 1, False),  # irb16 geometry
     (57, 55, 17, 100, 17, 3, 1, True),   # C, E not multiples of 4
+    # E split (4 slices: 32, 32, 32, 4), E not a multiple of splits x 32
+    (9, 9, 8, 100, 16, 3, 1, False),
+    (9, 7, 12, 100, 12, 5, 1, True),
+    (7, 7, 160, 960, 160, 3, 1, True),   # irb14/15 geometry, residual
 ])
 def test_fused_irb(dev, h, w, c, e, co, k, s, res):
     rng = np.random.default_rng(3)
@@ -174,6 +203,75 @@ def test_fused_irb(dev, h, w, c, e, co, k, s, res):
     kw = dict(kernel=k, stride=s, qmax=255, residual=res,
               res_q=(0.05, -7.0, 0.04, -110.0, 0.06, -3.0) if res else None)
     _equal(fused_irb_q(*args, **kw), fused_irb_q_plain(*args, **kw))
+
+
+def _irb_case(dev, b, h, w, c, e, co, k, s, res, seed=4):
+    rng = np.random.default_rng(seed)
+    x = _rand(rng, dev, (b, h, w, c), 0, 256, torch.int32)
+    w1 = _rand(rng, dev, (c, e), -127, 128, torch.int8)
+    w2 = _rand(rng, dev, (k, k, e), -127, 128, torch.int8)
+    w3 = _rand(rng, dev, (e, co), -127, 128, torch.int8)
+    args = (x, w1, *_consts(rng, dev, e, -120, w1.to(torch.int32).sum(0)),
+            w2, *_consts(rng, dev, e), w3, *_consts(rng, dev, co))
+    kw = dict(kernel=k, stride=s, qmax=255, residual=res,
+              res_q=(0.05, -7.0, 0.04, -110.0, 0.06, -3.0) if res else None)
+    return args, kw
+
+
+# (b, h, w, c, e, co, k, s, residual): MobileNetV2's 7x7 and 14x14 blocks at
+# batch 8, a 28x28 one (a single slice), and E = 100 in 4 slices
+IRB_SPLIT_CASES = [
+    (8, 7, 7, 160, 960, 160, 3, 1, True),    # irb14/15
+    (8, 7, 7, 160, 960, 320, 3, 1, False),   # irb16
+    (8, 14, 14, 96, 576, 160, 3, 2, False),  # irb13
+    (8, 14, 14, 64, 384, 64, 3, 1, True),    # irb7..9
+    (8, 28, 28, 32, 192, 32, 3, 1, True),    # irb4/5: one slice
+    (2, 9, 9, 8, 100, 16, 3, 1, False),
+]
+
+
+@pytest.mark.parametrize("case", IRB_SPLIT_CASES, ids=str)
+def test_fused_irb_plan_choice_is_recorded(dev, case):
+    """The launch took the variant `plan` chose (split E or one slice), once,
+    and gave the plain version's bits."""
+    args, kw = _irb_case(dev, *case)
+    b, h, w, c, e, co, k, s, _ = case
+    splits = FI.plan(b, h, w, c, e, co, k, s).splits
+    assert (splits > 1) == (h <= 14 or e == 100)
+    K.reset_launch_counts()
+    got = fused_irb_q(*args, **kw)
+    assert fused_irb_q.launches == 1
+    assert fused_irb_q.variants == {"single": int(splits == 1),
+                                    "split_e": int(splits > 1)}
+    _equal(got, fused_irb_q_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("case", IRB_SPLIT_CASES[:2], ids=str)
+def test_fused_irb_forced_one_slice_at_7x7(dev, case, monkeypatch):
+    """At 7x7 a plan forced to one slice (one block walks all of E) gives
+    the bits of the split launch and of the plain version."""
+    args, kw = _irb_case(dev, *case)
+    split = fused_irb_q(*args, **kw)
+    p = FI.plan(*case[:-1])
+    assert p.splits > 1
+    one = p._replace(splits=1, eslice=-(-case[4] // FI.CHUNK) * FI.CHUNK)
+    monkeypatch.setattr(FI, "plan", lambda *a: one)
+    K.reset_launch_counts()
+    got = fused_irb_q(*args, **kw)
+    assert fused_irb_q.variants == {"single": 1, "split_e": 0}
+    _equal(got, split)
+    _equal(got, fused_irb_q_plain(*args, **kw))
+
+
+def test_depthwise_and_fused_irb_deterministic(dev):
+    """Two calls give equal bits: K3 at the Head's shape, K4 split in 30
+    slices at 7x7 and in 6 at 14x14."""
+    args = _dw_case(dev, (8, 112, 112, 32), 3, seed=7)
+    kw = dict(kernel=3, stride=1, qmax=255)
+    _equal(depthwise_conv_q(*args, **kw), depthwise_conv_q(*args, **kw))
+    for case in IRB_SPLIT_CASES[1], IRB_SPLIT_CASES[3]:
+        args, kw = _irb_case(dev, *case, seed=8)
+        _equal(fused_irb_q(*args, **kw), fused_irb_q(*args, **kw))
 
 
 @pytest.mark.parametrize("model,bits", [("mobilenet_v2", 4),

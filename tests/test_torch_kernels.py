@@ -5,9 +5,10 @@ route against the JAX reference interpreter on every fusable block of the
 MobileNetV2 goldens. Tolerance everywhere: exact.
 
 On the CPU each kernel wrapper runs its plain version, so these tests also
-drive the wrappers' CPU path. At the end, K2's and K5's `plan` (which
-kernel variant, tile and K slices a launch takes on the card) is checked
-for every shape the main paths and the card tests give them."""
+drive the wrappers' CPU path. At the end, K2's, K4's and K5's `plan`
+(which kernel variant, tile and K or E slices a launch takes on the card)
+is checked for every shape the main paths and the card tests give them,
+and K4's E split is emulated slice by slice against the reference."""
 import itertools
 import os
 
@@ -23,9 +24,12 @@ from repro.kernels.fused_irb import fused_irb_q as jax_irb
 from repro.kernels.pointwise_conv import pointwise_conv_q as jax_pw
 from repro_torch.core import cu
 from repro_torch.convert import qnet_from_reference
+from repro_torch.kernels import depthwise_conv as DW, fused_irb as FI
 from repro_torch.kernels import ops as K
+from repro_torch.kernels import pointwise_conv as PW
+from repro_torch.kernels.common import requant_clip
 from repro_torch.kernels.depthwise_conv import depthwise_conv_q
-from repro_torch.kernels.fused_irb import fused_irb_q
+from repro_torch.kernels.fused_irb import fused_irb_q, fused_irb_q_plain
 from repro_torch.kernels.pointwise_conv import pointwise_conv_q
 from tests.regen_golden import build_net, fixture_paths
 
@@ -197,6 +201,60 @@ def test_fused_irb_equals_reference_run_block_on_golden(bits):
     assert checked == 16
 
 
+def _irb_e_split(x_q, w1, m1, z1, b1, w2, m2, z2, b2, w3, m3, z3, b3, *,
+                 eslice, kernel, stride, qmax, residual=False, res_q=None):
+    """K4's split of E on the card, in plain PyTorch: each slice of
+    `eslice` expanded channels is expanded, depthwised and projected on
+    its own into an int32 partial (float64 products: exact); the partials
+    are added, then the projection epilogue and the residual run once."""
+    acc = 0
+    for e0 in range(0, w1.shape[1], eslice):
+        sl = slice(e0, e0 + eslice)
+        e = PW.pointwise_conv_q_plain(x_q, w1[:, sl], m1[sl], z1[sl], b1[sl],
+                                      qmax=qmax)
+        d = DW.depthwise_conv_q_plain(e, w2[..., sl], m2[sl], z2[sl], b2[sl],
+                                      kernel=kernel, stride=stride, qmax=qmax)
+        acc = acc + torch.matmul(d.to(torch.float64),
+                                 w3[sl].to(torch.float64)).to(torch.int32)
+    y = requant_clip(acc, m3, b3, qmax, zpc=z3)
+    if residual:
+        y = cu.residual_add(x_q, res_q[0], res_q[1], y, *res_q[2:], qmax)
+    return y
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_fused_irb_e_split_emulation_equals_run_block(bits):
+    """Every fusable block of the MobileNetV2 goldens (the compact
+    EfficientNet's blocks all carry SE, so none is fusable), cut into the E slices
+    `fused_irb.plan` gives the fixture's batch and into slices of one
+    chunk, equals `fused_irb_q_plain` and the JAX `cu.run_block` bit for
+    bit (small widths: the goldens' own)."""
+    qnet_path, npz_path = fixture_paths("mobilenet_v2", bits)
+    ref = RQ.load_qnet(qnet_path, build_net("mobilenet_v2", bits))
+    pq = cu.prepare_qnet(qnet_from_reference(ref), device="cpu")
+    x = np.load(npz_path)["input"]
+    s, z = rcu.input_qparams(ref)
+    y = rcu.quantize_input(jnp.asarray(x), s, z, 8)
+    checked = 0
+    for block in ref.spec.blocks:
+        want, ws, wz = rcu.run_block(y, block, ref, s, z)
+        if K.fusable_irb(block):
+            tensors, kw, _, _ = K.irb_args(block, pq, s, z)
+            xt = torch.from_numpy(np.array(y))
+            b, h, w, c = xt.shape
+            e, c_out = tensors[0].shape[1], tensors[8].shape[1]
+            p = FI.plan(b, h, w, c, e, c_out, kw["kernel"], kw["stride"])
+            plain = fused_irb_q_plain(xt, *tensors, **kw)
+            np.testing.assert_array_equal(plain.numpy(), np.asarray(want),
+                                          err_msg=block.name)
+            for eslice in sorted({p.eslice, FI.CHUNK}):
+                got = _irb_e_split(xt, *tensors, eslice=eslice, **kw)
+                assert torch.equal(got, plain), (block.name, eslice)
+            checked += 1
+        y, s, z = want, ws, wz
+    assert checked == 16
+
+
 def test_wrappers_refuse_other_devices():
     x = torch.zeros(1, 4, 4, 8, dtype=torch.int32, device="meta")
     z = torch.zeros(8, dtype=torch.int32)
@@ -209,7 +267,7 @@ def test_wrappers_refuse_other_devices():
 
 
 # ---------------------------------------------------------------------------
-# K2's and K5's `plan`: a legal answer for every shape the main paths, the
+# K2's, K4's and K5's `plan`: a legal answer for every shape the main paths, the
 # [lm] phase of chip_smoke.py and the card tests give them (plain Python,
 # no card needed)
 # ---------------------------------------------------------------------------
@@ -217,7 +275,6 @@ def test_wrappers_refuse_other_devices():
 from repro_torch.configs import llama32_1b  # noqa: E402
 from repro_torch.core import graph as G  # noqa: E402
 from repro_torch.core.qnet import build_netspec, read_qnet_meta  # noqa: E402
-from repro_torch.kernels import pointwise_conv as PW  # noqa: E402
 from repro_torch.kernels import quant_matmul as QM  # noqa: E402
 from tests import torch_lm_cases as LMC  # noqa: E402
 
@@ -284,6 +341,80 @@ def test_pointwise_plan_main_path_choices():
     assert PW.plan(100352, 32, 16)[:2] == ((64, 16, 32), 1)
     assert PW.plan(392, 320, 1280).splits == 1
     assert PW.plan(8, 1280, 1000).splits > 1
+
+
+def _irb_launches(spec: G.NetSpec, batch: int):
+    """(b, h, w, c, e, c_out, kernel, stride) of every fused-IRB launch of
+    the served route (`ops.fusable_irb` blocks)."""
+    h, shapes = spec.input_hw, []
+    for block in spec.blocks:
+        if K.fusable_irb(block):
+            pw1, dw, pw3 = block.ops
+            shapes.append((batch, h, h, pw1.in_ch, pw1.out_ch, pw3.out_ch,
+                           dw.kernel, dw.stride))
+        for op in block.ops:
+            if op.kind in (G.CONV, G.DW):
+                h = -(-h // op.stride)
+        if block.avgpool:
+            h = 1
+    return shapes
+
+
+def _irb_cases():
+    shapes = set()
+    for path in _VISION_QNETS:
+        spec = build_netspec(read_qnet_meta(path)["build"])
+        for batch in (1, 2, 4, 8):
+            shapes.update(_irb_launches(spec, batch))
+    # tests/test_torch_cuda.py
+    shapes.update({(2, 8, 8, 8, 32, 16, 3, 1), (2, 9, 9, 8, 24, 16, 3, 2),
+                   (2, 12, 19, 16, 96, 24, 3, 2),
+                   (2, 14, 14, 32, 144, 32, 3, 1),
+                   (2, 13, 11, 24, 72, 24, 5, 1),
+                   (2, 10, 10, 16, 96, 40, 5, 2),
+                   (2, 7, 7, 160, 960, 320, 3, 1),
+                   (2, 57, 55, 17, 100, 17, 3, 1),
+                   (2, 9, 9, 8, 100, 16, 3, 1), (2, 9, 7, 12, 100, 12, 5, 1),
+                   (2, 7, 7, 160, 960, 160, 3, 1),
+                   (8, 7, 7, 160, 960, 160, 3, 1),
+                   (8, 7, 7, 160, 960, 320, 3, 1),
+                   (8, 14, 14, 96, 576, 160, 3, 2),
+                   (8, 14, 14, 64, 384, 64, 3, 1),
+                   (8, 28, 28, 32, 192, 32, 3, 1)})
+    return sorted(shapes)
+
+
+@pytest.mark.parametrize("b,h,w,c,e,c_out,kernel,stride", _irb_cases(),
+                         ids=str)
+def test_fused_irb_plan_is_legal(b, h, w, c, e, c_out, kernel, stride):
+    p = FI.plan(b, h, w, c, e, c_out, kernel, stride)
+    (th, tw), nacc, splits, eslice = p
+    ho, wo = -(-h // stride), -(-w // stride)
+    assert (th, tw) == FI.default_tile(ho, wo, c_out)
+    assert nacc in FI.NACCS and th * tw * c_out <= nacc * FI.THREADS
+    assert eslice >= FI.CHUNK and eslice % FI.CHUNK == 0  # whole chunks
+    assert (splits - 1) * eslice < e <= splits * eslice  # none empty
+    assert p.smem_bytes(c, c_out, kernel, stride) <= FI.SMEM_MAX
+    tiles = -(-ho // th) * -(-wo // tw)
+    if splits > 1:  # only where the tiles leave SMs idle
+        assert tiles * b < PW.SMS
+    assert p.workspace_numel(b * ho * wo, c_out) == (
+        splits * b * ho * wo * c_out if splits > 1 else 0)
+
+
+def test_fused_irb_plan_main_path_choices():
+    """MobileNetV2 (alpha 1.0, 224) at batch 8: E split at 14x14 and 7x7,
+    one slice at 56x56 and 28x28."""
+    spec = build_netspec(read_qnet_meta(_VISION_QNETS[0])["build"])
+    launches = _irb_launches(spec, 8)
+    assert len(launches) == 16
+    by_out = {}
+    for b, h, w, c, e, c_out, k, s in launches:
+        by_out.setdefault(-(-h // s), []).append(
+            FI.plan(b, h, w, c, e, c_out, k, s).splits)
+    assert sorted(by_out) == [7, 14, 28, 56]
+    assert all(n > 1 for n in by_out[7] + by_out[14])
+    assert by_out[28] == [1] * 3 and by_out[56] == [1] * 2
 
 
 def _record_pointwise_inputs(monkeypatch):
