@@ -46,7 +46,9 @@ last line:
      cache, int8 (from `kv_quant`) at kv_len 4096 and 3001, bf16 at 3001.
      The launch counters are set to 0 just before and read just after;
      every 8-row linear must have taken K5's `decode` variant and every
-     512-row one its `mma` variant. Each case is called a second time and
+     512-row one its `mma` variant, and every decode case K6's `split_s`
+     (its line names the splits, positions a split, blocks and kv heads a
+     warp reads together). Each case is called a second time and
      must give the same bits. Each output is then held against the kernel's
      plain version on the same
      inputs (the JAX tests' tolerances: quantized matmul rtol 1e-5 / atol
@@ -57,9 +59,12 @@ last line:
      (`torch.matmul` on the dequantized weight; `scaled_dot_product_attention`
      on the dequantized cache), its bound (bytes at 3.35 TB/s or flops at
      the 989 TFLOP/s dense bf16 peak), and the kernel's and the library
-     call's device time alone, as in phase 3;
-  7. the kernels' JSON line (with `device_ms` and `library_device_ms`
-     beside the keys the contract names), the card line, and
+     call's device time alone, as in phase 3; K6 also `cold_device_ms`,
+     its device time with the L2 cache flushed before each call (the int8
+     caches fit in the 50 MB L2, so a warm call can beat the HBM bound);
+  7. the kernels' JSON line (with `device_ms`, `library_device_ms` and
+     K6's `cold_device_ms` beside the keys the contract names), the card
+     line, and
      {"ok": true, "device": {"platform": "gpu", ...}} as the last line.
 
 Imports nothing of JAX or of the JAX package.
@@ -108,6 +113,7 @@ QMM_TOL = {"float32": (1e-5, 1e-3), "bfloat16": (2e-2, 2e-1)}
 ATTN_TOL = (1e-5, 1e-5)
 REPS = 25
 SPIN_CYCLES = 2_000_000  # about 1 ms at the H100's clock
+FLUSH_BYTES = 256 << 20  # written before each cold call: 5x the 50 MB L2
 
 
 def card_line() -> str:
@@ -131,14 +137,18 @@ def digests(act) -> list:
     return [hashlib.sha256(row.tobytes()).hexdigest() for row in u8]
 
 
-def time_ms(fn, reps: int = REPS, device_only: bool = False) -> float:
+def time_ms(fn, reps: int = REPS, device_only: bool = False,
+            flush=None) -> float:
     """Median time of one call, CUDA events around each call: the call as
     the host sees it, its Python wrapper and launch cost included (the
     `ms` of every kernel line and of the JSON line). With `device_only`, a
     spin kernel (`torch.cuda._sleep`, about 1 ms) holds the stream while
     the host enqueues the first event, the call and the second event, so
     the interval is the device's work alone (`device_ms`); a call whose
-    host side outlasts the spin still shows its gaps."""
+    host side outlasts the spin still shows its gaps. With `flush`, a
+    tensor of FLUSH_BYTES is zeroed before each call, outside the events,
+    so that the call finds the L2 cache holding none of its inputs
+    (`cold_device_ms`)."""
     import torch
     for _ in range(3):
         fn()
@@ -146,6 +156,8 @@ def time_ms(fn, reps: int = REPS, device_only: bool = False) -> float:
     for _ in range(reps):
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
+        if flush is not None:
+            flush.zero_()
         if device_only:
             torch.cuda._sleep(SPIN_CYCLES)
         t0.record()
@@ -500,7 +512,7 @@ def phase_lm(card):
     from repro_torch.configs import llama32_1b
     from repro_torch.kernels import ops as K
     from repro_torch.kernels.decode_attention import (
-        decode_attention, decode_attention_plain)
+        decode_attention, decode_attention_plain, launch_plan as da_plan)
     from repro_torch.kernels.quant_matmul import (
         dequantize, plan, quant_matmul, quant_matmul_plain)
 
@@ -522,7 +534,12 @@ def phase_lm(card):
         outs.append(K.quantized_linear(x, wq, sc, bits=bits))
         took.append([v for v, c in quant_matmul.variants.items()
                      if c != before[v]])
-    douts = [K.decode_attend(q, cache, n) for _, q, cache, n, _ in decodes]
+    douts, dtook = [], []  # dtook: the variant each K6 case counted
+    for _, q, cache, n, _ in decodes:
+        before = dict(decode_attention.variants)
+        douts.append(K.decode_attend(q, cache, n))
+        dtook.append([v for v, c in decode_attention.variants.items()
+                      if c != before[v]])
     torch.cuda.synchronize()
     counts = K.launch_counts()
     want = {name: 0 for name in counts}
@@ -534,6 +551,8 @@ def phase_lm(card):
     expect = {8: "decode", 512: "mma"}
     wrong = [f"{case[0]} took {v}" for case, v in zip(linears, took)
              if v != [expect[case[1].shape[0]]]]
+    wrong += [f"decode_attention[{case[0]}] took {v}"
+              for case, v in zip(decodes, dtook) if v != ["split_s"]]
     if wrong:
         raise SystemExit(f"[lm] wrong variant: {', '.join(wrong)}")
 
@@ -581,7 +600,10 @@ def phase_lm(card):
               f"bound_ms={max(bytes_ms, ops_ms):.5f} "
               f"({'bytes' if bytes_ms >= ops_ms else 'operations'}) "
               f"device_ms={dev_ms:.4f} library_device_ms={lib_dev_ms:.4f}")
-    for (label, q, cache, kv_len, gold), y in zip(decodes, douts):
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    cold_total = 0.0
+    for (label, q, cache, kv_len, gold), y, (variant,) in zip(decodes, douts,
+                                                              dtook):
         b, _, h, dh = q.shape
         kv = cache["k"].shape[2]
         qg = q.reshape(b, kv, h // kv, dh)
@@ -610,8 +632,14 @@ def phase_lm(card):
             qs, kd, vd, attn_mask=mask, enable_gqa=True))
         lib_ms = time_ms(sdpa)
         dev_ms = time_ms(lambda: decode_attention(*args), device_only=True)
+        cold_ms = time_ms(lambda: decode_attention(*args), device_only=True,
+                          flush=flush)
+        cold_total += cold_ms
         lib_dev_ms = time_ms(sdpa, device_only=True)
         del kd, vd, sdpa
+        # the plan the wrapper launched with for these tensors
+        p, lay = da_plan(qg, cache["k"], cache["v"])
+        blocks = p.splits * lay.grid(b, kv, h // kv)
         per_pos = b * kv * dh * cache["k"].element_size() * 2 + (
             b * kv * 2 * cache["k_scale"].element_size()
             if "k_scale" in cache else 0)
@@ -621,11 +649,16 @@ def phase_lm(card):
              ops_ms, dev_ms, lib_dev_ms)
         print(f"  decode_attention[{label}] q {tuple(q.shape)} cache "
               f"{tuple(cache['k'].shape)} {cache['k'].dtype} kv_len {n} "
+              f"variant={variant} plan: splits={p.splits} "
+              f"per_split={p.per_split} blocks={blocks} heads={lay.heads}; "
               f"max_abs_err={err:.3g} golden_err={gerr:.3g} ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
               f"bound_ms={max(bytes_ms, ops_ms):.5f} "
               f"({'bytes' if bytes_ms >= ops_ms else 'operations'}) "
-              f"device_ms={dev_ms:.4f} library_device_ms={lib_dev_ms:.4f}")
+              f"device_ms={dev_ms:.4f} cold_device_ms={cold_ms:.4f} "
+              f"library_device_ms={lib_dev_ms:.4f}")
+    del flush
+    rows["decode_attention"]["cold_dev_ms"] = cold_total
     for how, r in layer.items():
         print(f"[lm] one decoder layer's 7 linears, {how}: ms {r['ms']:.4f}, "
               f"bound_ms {r['bound']:.5f}, plain_ms {r['plain_ms']:.4f}, "
@@ -640,6 +673,9 @@ def phase_lm(card):
             for name, r in rows.items()]:
         print(f"[lm] {how}, the device's work alone: device_ms "
               f"{r['dev_ms']:.4f}, library_device_ms {r['lib_dev_ms']:.4f}")
+    print(f"[lm] decode_attention, its {counts['decode_attention']} cases "
+          f"with the L2 cache flushed before each call: cold_device_ms "
+          f"{cold_total:.4f}")
     if bad:
         raise SystemExit(f"[lm] out of tolerance: {', '.join(bad)}")
     return rows, counts
@@ -747,7 +783,9 @@ def main() -> int:
             else "operations",
             "library_ms": r["lib_ms"] if r["has_lib"] else None,
             "device_ms": r["dev_ms"],
-            "library_device_ms": r["lib_dev_ms"] if r["has_lib"] else None})
+            "library_device_ms": r["lib_dev_ms"] if r["has_lib"] else None,
+            **({"cold_device_ms": r["cold_dev_ms"]} if "cold_dev_ms" in r
+               else {})})
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import ops as K
 from repro_torch.kernels.decode_attention import (
     decode_attention,
@@ -323,6 +324,33 @@ def test_pointwise_inputs_lie_in_kernel_domain_on_card(dev, model, bits,
     assert all(0 <= lo and hi <= 255 for lo, hi in seen), seen
 
 
+@pytest.mark.parametrize("model,bits", [("mobilenet_v2", 4),
+                                        ("mobilenet_v2", 8)])
+def test_fused_irb_inputs_lie_in_kernel_domain_on_card(dev, model, bits,
+                                                       monkeypatch):
+    """K4 narrows its int32 x to u8 unchecked (`narrow4`): every input the
+    served route hands it on the card lies in its domain [0, 255], one call
+    a fused block."""
+    from repro_torch.core.qnet import build_netspec, load_qnet, read_qnet_meta
+    from repro_torch.serve.vision.stages import compile_stages
+
+    seen, real = [], K.fused_irb_q
+
+    def spy(x_q, *args, **kw):
+        seen.append((int(x_q.min()), int(x_q.max())))
+        return real(x_q, *args, **kw)
+
+    monkeypatch.setattr(K, "fused_irb_q", spy)
+    base = os.path.join(GOLDEN, f"{model}_act{bits}")
+    spec = build_netspec(read_qnet_meta(base + ".qnet")["build"])
+    x = torch.from_numpy(np.load(base + ".npz")["input"]).to(dev)
+    for stage in compile_stages(load_qnet(base + ".qnet"),
+                                body_fast_path="on", device=dev):
+        x = stage.run(x)
+    assert len(seen) == sum(K.fusable_irb(b) for b in spec.blocks) == 16
+    assert all(0 <= lo and hi <= 255 for lo, hi in seen), seen
+
+
 # ---------------------------------------------------------------------------
 # LM kernels: quantized matmul (K5) and decode attention (K6)
 # ---------------------------------------------------------------------------
@@ -430,9 +458,9 @@ def _cache(rng, dev, b, s, kv, dh, kind):
 @pytest.mark.parametrize("s,vlen", [(64, 64), (100, 37), (300, 300),
                                     (300, 129)])
 def test_decode_attention(dev, kind, rep, dh, s, vlen):
-    """S not a multiple of the kernel's 64-position tile; rep 8 x dh 128
-    needs more than 48 KB of shared memory; kv_len as an int and as a
-    0-dim device tensor."""
+    """S not a multiple of the kernel's tile; rep 8 x dh 128 needs more
+    than 48 KB of shared memory; kv_len as an int and as a 0-dim device
+    tensor."""
     rng = np.random.default_rng(12)
     b, kv = 2, 3
     q = _normal(rng, (b, kv, rep, dh), dev)
@@ -507,3 +535,140 @@ def test_lm_entry_points_count_launches(dev):
     assert K.launch_counts() == {"pointwise_conv_q": 0, "depthwise_conv_q": 0,
                                  "fused_irb_q": 0, "quant_matmul": 1,
                                  "decode_attention": 1}
+
+
+# K6 at the [lm] phase's shape (Llama-3.2-1B: B 8, KV 8, rep 4, dh 64, S 4096)
+LM_SHAPE = (8, 8, 4, 64, 4096)
+
+
+@pytest.fixture(scope="module")
+def lm_caches(dev):
+    b, kv, rep, dh, s = LM_SHAPE
+    rng = np.random.default_rng(40)
+    q = _normal(rng, (b, kv, rep, dh), dev)
+    k, v = _normal(rng, (b, s, kv, dh), dev), _normal(rng, (b, s, kv, dh), dev)
+    (k8, ks), (v8, vs) = kv_quant(k), kv_quant(v)
+    return q, {"int8": (k8, v8, ks, vs),
+               "bf16": (k.to(torch.bfloat16), v.to(torch.bfloat16), None,
+                        None)}
+
+
+@pytest.mark.parametrize("kind", ["int8", "bf16"])
+@pytest.mark.parametrize("kv_len", [1, 511, 512, 513, 3001, 4096])
+def test_decode_attention_lm_shape(dev, lm_caches, kind, kv_len):
+    """The [lm] shape splits S (`split_s`, counted once a call); kv_len on
+    both sides of split boundaries, as an int and as a device tensor, gives
+    the same bits, within tolerance of the plain version."""
+    q, caches = lm_caches
+    k, v, ks, vs = caches[kind]
+    K.reset_launch_counts()
+    got = decode_attention(q, k, v, kv_len, ks, vs)
+    got_t = decode_attention(q, k, v, torch.tensor(kv_len, dtype=torch.int32,
+                                                   device=dev), ks, vs)
+    assert decode_attention.launches == 2
+    assert decode_attention.variants == {"single": 0, "split_s": 2}
+    torch.testing.assert_close(
+        got, decode_attention_plain(q, k, v, kv_len, ks, vs), **ATTN_TOL)
+    assert torch.equal(got, got_t)
+
+
+@pytest.mark.parametrize("kind", ["int8", "bf16"])
+def test_decode_attention_forced_one_split(dev, lm_caches, kind,
+                                           monkeypatch):
+    """A plan forced to one split (one block walks all of S, no merge) is
+    within tolerance of the split launch and of the plain version."""
+    q, caches = lm_caches
+    k, v, ks, vs = caches[kind]
+    split = decode_attention(q, k, v, 3001, ks, vs)
+    p = DA.plan(*LM_SHAPE, k.dtype)
+    assert p.splits > 1
+    one = p._replace(variant="single", splits=1, per_split=LM_SHAPE[-1])
+    monkeypatch.setattr(DA, "plan", lambda *a, **kw: one)
+    K.reset_launch_counts()
+    got = decode_attention(q, k, v, 3001, ks, vs)
+    assert decode_attention.variants == {"single": 1, "split_s": 0}
+    torch.testing.assert_close(got, split, **ATTN_TOL)
+    torch.testing.assert_close(
+        got, decode_attention_plain(q, k, v, 3001, ks, vs), **ATTN_TOL)
+
+
+@pytest.mark.parametrize("kind", ["int8", "bf16"])
+def test_decode_attention_deterministic(dev, lm_caches, kind):
+    """Splits merged in a fixed order, no atomics: two calls, the same
+    bits."""
+    q, caches = lm_caches
+    k, v, ks, vs = caches[kind]
+    n = torch.tensor(4096, dtype=torch.int32, device=dev)
+    a = decode_attention(q, k, v, n, ks, vs)
+    b = decode_attention(q, k, v, n, ks, vs)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["int8", "bf16"])
+def test_decode_attention_unaligned_cache_scalar_path(dev, kind):
+    """Caches one element past a 16-byte boundary (an offset view) take the
+    scalar loads, within tolerance of the plain version and of the aligned
+    16-byte path."""
+    rng = np.random.default_rng(41)
+    b, s, kv, rep, dh = 2, 300, 2, 4, 64
+    q = _normal(rng, (b, kv, rep, dh), dev)
+    k, v, ks, vs = _cache(rng, dev, b, s, kv, dh, kind)
+
+    def offset(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    ku, vu = offset(k), offset(v)
+    assert ku.data_ptr() % 16 and vu.data_ptr() % 16 and ku.is_contiguous()
+    assert not DA.layout(kv, rep, dh, k.dtype, aligned=False).vec
+    assert DA.layout(kv, rep, dh, k.dtype).vec
+    got = decode_attention(q, ku, vu, 257, ks, vs)
+    torch.testing.assert_close(
+        got, decode_attention_plain(q, k, v, 257, ks, vs), **ATTN_TOL)
+    torch.testing.assert_close(got, decode_attention(q, k, v, 257, ks, vs),
+                               **ATTN_TOL)
+
+
+@pytest.mark.parametrize("kind", ["int8", "bf16"])
+@pytest.mark.parametrize("kv,dh", [(4, 32), (2, 32), (8, 16)])
+def test_decode_attention_heads_a_warp(dev, kind, kv, dh):
+    """Short rows: a warp reads adjacent kv heads of a position together."""
+    rng = np.random.default_rng(42)
+    b, s, rep = 2, 300, 4
+    q = _normal(rng, (b, kv, rep, dh), dev)
+    k, v, ks, vs = _cache(rng, dev, b, s, kv, dh, kind)
+    assert DA.layout(kv, rep, dh, k.dtype).heads > 1
+    torch.testing.assert_close(decode_attention(q, k, v, 290, ks, vs),
+                               decode_attention_plain(q, k, v, 290, ks, vs),
+                               **ATTN_TOL)
+
+
+@pytest.mark.parametrize("drift", ["blocks_per_sm", "rows", "vec"])
+def test_decode_attention_launcher_refuses_a_drifted_layout(dev, monkeypatch,
+                                                            drift):
+    """The launcher takes the wrapper's layout and only checks it: another
+    blocks an SM than its launch bounds, rows it has no instantiation
+    for, or 16-byte loads of an unaligned cache are refused, not run."""
+    rng = np.random.default_rng(43)
+    b, s, kv, rep, dh = 2, 300, 2, 4, 64
+    q = _normal(rng, (b, kv, rep, dh), dev)
+    k, v, ks, vs = _cache(rng, dev, b, s, kv, dh, "int8")
+    if drift == "vec":  # one byte past a 16-byte boundary
+        k, v = (torch.empty(t.numel() + 1, dtype=t.dtype,
+                            device=dev)[1:].view(t.shape) for t in (k, v))
+    p, lay = DA.launch_plan(q, k, v)
+    bad = {"blocks_per_sm": lay._replace(blocks_per_sm=lay.blocks_per_sm + 1),
+           "rows": lay._replace(rows=8),  # int8 has no 8-row kernel
+           "vec": DA.layout(kv, rep, dh, k.dtype)}[drift]
+    bad_p = DA.plan(b, kv, rep, dh, s, k.dtype, aligned=bad.vec)
+    if drift == "rows":  # the shared memory of the drifted layout
+        bad_p = bad_p._replace(smem_bytes=DA.smem_bytes(
+            bad, 1, dh, bad_p.tile, quant=True))
+    assert bad != lay
+    monkeypatch.setattr(DA, "launch_plan", lambda *a: (bad_p, bad))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        decode_attention(q, k, v, 257, ks, vs)
+    torch.cuda.synchronize()

@@ -448,6 +448,46 @@ def test_pointwise_inputs_lie_in_kernel_domain(path, monkeypatch):
     assert all(0 <= lo and hi <= 255 for lo, hi in seen), seen
 
 
+def _record_irb_inputs(monkeypatch):
+    """Route `ops`' fused-IRB calls through a spy that keeps each input's
+    (min, max); returns that list."""
+    seen, real = [], K.fused_irb_q
+
+    def spy(x_q, *args, **kw):
+        seen.append((int(x_q.min()), int(x_q.max())))
+        return real(x_q, *args, **kw)
+
+    monkeypatch.setattr(K, "fused_irb_q", spy)
+    return seen
+
+
+_FUSED_QNETS = [p for p in _VISION_QNETS if "efficientnet" not in p]
+
+
+@pytest.mark.parametrize("path", _FUSED_QNETS, ids=os.path.basename)
+def test_fused_irb_inputs_lie_in_kernel_domain(path, monkeypatch):
+    """On the card K4 narrows its int32 x to u8 unchecked (`narrow4`), so
+    its domain is x in [0, 255]. Every golden net with a fusable Body, on
+    its fixture's images (the full-width one on its first image), through
+    the served route: one call a fused block, every input in the domain."""
+    from repro_torch.core.qnet import load_qnet
+    from repro_torch.serve.vision.stages import compile_stages
+    from tests.test_torch_fullwidth import images
+
+    spec = build_netspec(read_qnet_meta(path)["build"])
+    fused = sum(K.fusable_irb(block) for block in spec.blocks)
+    assert fused == 16  # MobileNetV2's Body (the compact EfficientNet: 0)
+    seen = _record_irb_inputs(monkeypatch)
+    x = (images()[:1] if "golden_torch" in path
+         else np.load(path[:-len(".qnet")] + ".npz")["input"])
+    y = torch.from_numpy(x)
+    for stage in compile_stages(load_qnet(path), body_fast_path="on",
+                                device="cpu"):
+        y = stage.run(y)
+    assert len(seen) == fused
+    assert all(0 <= lo and hi <= 255 for lo, hi in seen), seen
+
+
 def _qmm_cases():
     cases = set()
     cfg = llama32_1b.get_config()

@@ -25,6 +25,7 @@ entry points' outputs (inputs: `tests/torch_lm_cases.py`). Regenerate it:
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import os
 
 import numpy as np
@@ -44,6 +45,7 @@ from repro.models.lm.config import LMConfig as JaxLMConfig
 from repro_torch.configs import llama32_1b
 from repro_torch.convert import lm_from_reference
 from repro_torch.core import quant as Q
+from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import ops as K
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.models.lm.common import kv_dequant, kv_quant
@@ -331,6 +333,180 @@ def test_mma_emulation_matches_jax_kernel(m, k, n, bits, gs, bm, bn, bk,
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                **(F32_TOL if dtype == "float32" else
                                   BF16_TOL))
+
+
+# ---------------------------------------------------------------------------
+# K6 on the card: its `plan`, and its split-and-merge arithmetic emulated in
+# torch on the CPU
+# ---------------------------------------------------------------------------
+
+
+_LM = llama32_1b.get_config()
+
+
+def _decode_plan_cases():
+    """(b, kv, rep, dh, s, cache dtype) of the [lm] phase of chip_smoke.py
+    and of every K6 case of tests/test_torch_cuda.py."""
+    cases = {(C.DECODE_B, _LM.n_kv_heads, _LM.n_heads // _LM.n_kv_heads,
+              _LM.head_dim, C.DECODE_S, dt)
+             for dt in (torch.int8, torch.bfloat16)}
+    for dt in (torch.int8, torch.bfloat16, torch.float32):
+        for rep, dh in ((1, 32), (4, 64), (8, 128)):
+            for s in (64, 100, 300):
+                cases.add((2, 3, rep, dh, s, dt))
+        cases.update({(2, 2, 4, 64, 200, dt), (1, 2, 4, 16, 40, dt),
+                      (2, 2, 8, 16, 70, dt), (2, 4, 4, 32, 300, dt),
+                      (1, 2, 4, 64, 1000, dt)})
+    return sorted(cases, key=str)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("b,kv,rep,dh,s,dtype", _decode_plan_cases(),
+                         ids=str)
+def test_decode_attention_plan_is_legal(b, kv, rep, dh, s, dtype, aligned):
+    """Every slice non-empty and S covered, whole tile steps, the card's
+    shared memory, heads that divide KV, and no kv_len in the decision."""
+    p = DA.plan(b, kv, rep, dh, s, dtype, aligned=aligned)
+    lay = DA.layout(kv, rep, dh, dtype, aligned)
+    assert p.splits * p.per_split >= s
+    assert (p.variant == "split_s") == (p.splits > 1)
+    if p.splits > 1:
+        assert (p.splits - 1) * p.per_split < s  # none empty below S
+        assert p.per_split >= DA.MIN_SPLIT
+    assert p.tile % lay.tile_step(dh) == 0
+    assert p.tile <= max(DA.TILE_MAX, lay.tile_step(dh))
+    assert p.smem_bytes <= DA.SMEM_MAX
+    assert kv % lay.heads == 0 and (lay.heads == 1 or lay.vec)
+    assert lay.vec == (aligned and dh * dtype.itemsize % 16 == 0)
+    assert p.workspace_numel(b, kv, rep, dh) == (
+        p.splits * b * kv * rep * (dh + 2) if p.splits > 1 else 0)
+    assert "kv_len" not in inspect.signature(DA.plan).parameters
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_decode_attention_plan_lm_shape(dtype):
+    """At the [lm] shape S is split, into at least two blocks an SM, and
+    int8 reads two kv heads (128 bytes) of a position at once."""
+    b, kv, rep, dh = (C.DECODE_B, _LM.n_kv_heads,
+                      _LM.n_heads // _LM.n_kv_heads, _LM.head_dim)
+    p = DA.plan(b, kv, rep, dh, C.DECODE_S, dtype)
+    lay = DA.layout(kv, rep, dh, dtype)
+    blocks = p.splits * lay.grid(b, kv, rep)
+    assert p.variant == "split_s" and blocks >= 2 * DA.SMS
+    assert lay.heads * dh * dtype.itemsize >= DA.MIN_BYTES
+
+
+def split_merge_emulation(q, k_cache, v_cache, kv_len, k_scale, v_scale, p):
+    """What the card's split and merge kernels compute, in f32 torch,
+    following `p` and `layout`: each split's warps walk their positions in
+    tiles (scores with the folded k scale, the tile's max, one rescale,
+    weights p * v_scale), the warps merge in order, then the splits in
+    order (an empty split takes no part). Sums run in another order than
+    on the card."""
+    b, kv, rep, dh = q.shape
+    end = min(k_cache.shape[1], kv_len)
+    scale = dh ** -0.5
+    quant = k_cache.dtype == torch.int8
+    qf, kf, vf = q.float(), k_cache.float(), v_cache.float()
+    if quant:
+        kss = (k_scale.float() * scale).permute(0, 2, 1)[:, :, None, :]
+        vss = v_scale.float().permute(0, 2, 1)[:, :, None, :]
+    lay = DA.layout(kv, rep, dh, k_cache.dtype)
+    pps = 32 // (DA._lanes(lay.values, dh) * lay.heads)
+    pws = -(-(-(-p.per_split // DA.WARPS)) // pps) * pps
+    twp = p.tile // DA.WARPS
+    shape = (b, kv, rep)
+
+    def merge(states):
+        m = torch.stack([st[0] for st in states]).amax(0)
+        mu = torch.where(m == -torch.inf, 0.0, m)
+        f = [torch.exp(st[0] - mu) for st in states]
+        return (m, sum(st[1] * fi for st, fi in zip(states, f)),
+                sum(st[2] * fi[..., None] for st, fi in zip(states, f)))
+
+    splits = []
+    for sp in range(p.splits):
+        s0, s1 = sp * p.per_split, min(end, (sp + 1) * p.per_split)
+        if s0 >= s1:
+            continue  # m = -inf, l = 0: selected away by the merge
+        warps = []
+        for w in range(DA.WARPS):
+            m = torch.full(shape, -torch.inf)
+            l, acc = torch.zeros(shape), torch.zeros(shape + (dh,))
+            ws0, ws1 = s0 + w * pws, min(s1, s0 + (w + 1) * pws)
+            for t0 in range(ws0, ws1, twp):
+                t = slice(t0, min(ws1, t0 + twp))
+                sc = torch.einsum("bgrd,bngd->bgrn", qf, kf[:, t]) * (
+                    kss[..., t] if quant else scale)
+                mn = torch.maximum(m, sc.amax(-1))
+                c = torch.where(mn > m, torch.exp(m - mn), 1.0)
+                acc, l, m = acc * c[..., None], l * c, mn
+                pr = torch.exp(sc - m[..., None])
+                l = l + pr.sum(-1)
+                acc = acc + torch.einsum(
+                    "bgrn,bngd->bgrd", pr * vss[..., t] if quant else pr,
+                    vf[:, t])
+            warps.append((m, l, acc))
+        splits.append(merge(warps))
+    _, l, acc = merge(splits)
+    return (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+
+
+_EMU_B, _EMU_KV, _EMU_REP, _EMU_DH, _EMU_S = 2, 2, 4, 32, 384
+_emu_jax = {}
+
+
+def _emu_inputs(quant):
+    """numpy-seeded q and cache, as JAX arrays and carried to torch."""
+    rng = np.random.default_rng(30)
+    b, kv, rep, dh, s = _EMU_B, _EMU_KV, _EMU_REP, _EMU_DH, _EMU_S
+    q = rng.normal(size=(b, kv, rep, dh)).astype(np.float32)
+    k = jnp.asarray(rng.normal(size=(b, s, kv, dh)), jnp.float32)
+    v = jnp.asarray(rng.normal(size=(b, s, kv, dh)), jnp.float32)
+    if quant:
+        (k, ks), (v, vs) = RC.kv_quant(k), RC.kv_quant(v)
+        cache = {"k": k, "v": v, "k_scale": ks, "v_scale": vs}
+    else:
+        cache = {"k": k.astype(jnp.bfloat16), "v": v.astype(jnp.bfloat16)}
+    return q, cache
+
+
+def _emu_want(quant, kv_len):
+    """The JAX kernel (interpret mode), once per cache and kv_len."""
+    key = (quant, kv_len)
+    if key not in _emu_jax:
+        q, cache = _emu_inputs(quant)
+        _emu_jax[key] = np.asarray(jax_decode(
+            jnp.asarray(q), cache["k"], cache["v"], jnp.int32(kv_len),
+            cache.get("k_scale"), cache.get("v_scale"), block_s=128,
+            interpret=True))
+    return _emu_jax[key]
+
+
+@pytest.mark.parametrize("kv_len", [384, 1, 256, 200],
+                         ids=["full", "one", "split_boundary",
+                              "a_split_past_kv_len"])
+@pytest.mark.parametrize("splits,per_split,tile", [
+    (1, 384, 384), (1, 384, 128), (2, 256, 256), (3, 128, 128)],
+    ids=["one", "one_in_3_tiles", "two", "three"])
+@pytest.mark.parametrize("quant", [True, False], ids=["int8", "bf16"])
+def test_split_merge_emulation_matches_jax_kernel(quant, splits, per_split,
+                                                  tile, kv_len):
+    """K6's split-and-merge arithmetic against the JAX Pallas kernel at the
+    JAX tests' tolerance: one to three splits (kv_len 200 leaves the last
+    split of three, and of two, wholly past it; 256 ends on a split
+    boundary), and one split walked in three tiles."""
+    q, cache = _emu_inputs(quant)
+    tc = lm_from_reference({k: np.asarray(v) for k, v in cache.items()},
+                           device="cpu")
+    p = DA.plan(_EMU_B, _EMU_KV, _EMU_REP, _EMU_DH, _EMU_S, tc["k"].dtype)
+    p = p._replace(variant="split_s" if splits > 1 else "single",
+                   splits=splits, per_split=per_split, tile=tile)
+    got = split_merge_emulation(torch.from_numpy(q), tc["k"], tc["v"],
+                                kv_len, tc.get("k_scale"), tc.get("v_scale"),
+                                p)
+    np.testing.assert_allclose(got.numpy(), _emu_want(quant, kv_len),
+                               **ATTN_TOL)
 
 
 # ---------------------------------------------------------------------------
