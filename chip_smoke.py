@@ -62,7 +62,30 @@ last line:
      call's device time alone, as in phase 3; K6 also `cold_device_ms`,
      its device time with the L2 cache flushed before each call (the int8
      caches fit in the 50 MB L2, so a warm call can beat the HBM bound);
-  7. the kernels' JSON line (with `device_ms`, `library_device_ms` and
+  7. stream: `StreamEngine` on `cuda` serves the full-width keyword-spotting
+     DS-CNN (`build_kws()` defaults: 49 frames x 10 MFCC, 64 channels, 4
+     DS blocks, act8; `tests/torch_stream_cases.py`) at hop 4: 64 sessions
+     of 16 windows, staged with `push(defer=True)` and advanced by
+     `drain()` through buckets 2..64, in float-multiplier and in
+     fixed-point mode; all 12,288 logits of each mode must equal the JAX
+     package's `run_qnet` over each full window, stored in
+     `tests/golden_torch/dscnn_kws_t49_c64_act8.npz` (fixed point computed
+     under x64). Then the frozen `stream_logits` of
+     `tests/golden/dscnn_kws_act8.npz`, and the full-width HAR DS-CNN
+     (128 x 3, stride-2 DW k5) at hop 16, 8 sessions of 8 windows, float.
+     Prints the prime ms at each bucket, ms per `drain()` round at 64
+     sessions, the fleet's windows/s, the device busy share of 10 rounds
+     under torch.profiler with the host ops and device intervals a round,
+     and one session's step p50. The path
+     runs torch ops only (the reference has no kernel there): its launch
+     counts are printed and must be 0;
+  8. fixed point: the full-width MobileNetV2 fixture served by
+     `VisionEngine(fixed_point=True)` and by `cu.run_qnet(fixed_point=True)`
+     on `cuda`: all 8000 logits must equal the JAX package's x64
+     fixed-point logits (`..._act8_fixed.npz`). The kernels' epilogue is
+     float-multiplier only, so fixed point runs the reference torch ops:
+     launch counts printed, and they must be 0; ms per micro-batch of 8;
+  9. the kernels' JSON line (with `device_ms`, `library_device_ms` and
      K6's `cold_device_ms` beside the keys the contract names), the card
      line, and
      {"ok": true, "device": {"platform": "gpu", ...}} as the last line.
@@ -430,6 +453,255 @@ def lm_cases():
     return mod
 
 
+def stream_cases():
+    """`tests/torch_stream_cases.py`, loaded by its path."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_stream_cases",
+        os.path.join(ROOT, "tests", "torch_stream_cases.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def serve_fleet(eng, frames):
+    """Open one session a stream, stage every frame with `push(defer=True)`
+    and `drain()`; returns (logits [sessions * windows, classes] in
+    session-major order, the drain's seconds)."""
+    import numpy as np
+
+    sids = [eng.open_session() for _ in range(len(frames))]
+    for sid, fr in zip(sids, frames):
+        eng.push(sid, fr, defer=True)
+    t0 = time.perf_counter()
+    res = eng.drain()
+    secs = time.perf_counter() - t0
+    by = {(r.sid, r.window): r.logits for r in res}
+    n_win = len(res) // len(sids)
+    return np.stack([by[(sid, w)] for sid in sids
+                     for w in range(n_win)]), secs
+
+
+def phase_stream(card):
+    """The streaming 1-D path on the card, both requant modes, against the
+    JAX package's full-window logits; then its times."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.qnet import load_qnet
+    from repro_torch.kernels import ops as K
+    from repro_torch.serve.stream import StreamEngine
+
+    SC = stream_cases()
+    c = SC.CASES["kws"]
+    qnet_path, npz_path = SC.paths("kws")
+    fix = np.load(npz_path)
+    qnet = load_qnet(qnet_path)
+    frames = SC.frames("kws")
+    for fixed in (False, True):
+        mode = "fixed point" if fixed else "float"
+        eng = StreamEngine(qnet, c["hop"], fixed_point=fixed, device="cuda",
+                           max_sessions=c["sessions"],
+                           batch_buckets=SC.BUCKETS)
+        eng.warm(SC.BUCKETS)
+        K.reset_launch_counts()
+        got, secs = serve_fleet(eng, frames)
+        counts = K.launch_counts()
+        want = fix["logits_fixed" if fixed else "logits_float"]
+        n_diff = int(np.sum(got != want)) if got.shape == want.shape else -1
+        st = eng.stats()
+        print(f"[stream] KWS {mode}, {c['sessions']} sessions x "
+              f"{c['windows']} windows at hop {c['hop']} through drain() "
+              f"({secs * 1e3:.3f} ms): {n_diff} of {want.size} logits differ "
+              f"from the JAX package's run_qnet over each full window; "
+              f"{st['frames_per_window_step']:.0f} of "
+              f"{st['frames_per_window_full']:.0f} conv frames a step, "
+              f"{st['session_buffer_bytes']:.0f} B of ring buffers a "
+              f"session; batched programs {st['batched_traces']:.0f} "
+              f"(bound {2 * len(eng.batch_buckets)})")
+        print(f"[stream] launch counts {counts}: 0 by design, the streaming "
+              f"path runs torch ops only (the reference runs it through no "
+              f"kernel either)")
+        if n_diff:
+            raise SystemExit(f"[stream] KWS {mode}: logits are not "
+                             f"bit-identical")
+        if any(counts.values()):
+            raise SystemExit(f"[stream] a kernel was launched: {counts}")
+        if st["batched_traces"] > 2 * len(eng.batch_buckets):
+            raise SystemExit("[stream] more batched programs than buckets")
+        stream_times(eng, card, mode, c)
+
+    # the conformance golden's frozen per-window logits (window 32, hop 4)
+    gold = np.load(os.path.join(ROOT, "tests", "golden", "dscnn_kws_act8.npz"))
+    eng = StreamEngine(load_qnet(os.path.join(
+        ROOT, "tests", "golden", "dscnn_kws_act8.qnet")), 4, device="cuda")
+    res = eng.push(eng.open_session(), gold["stream_frames"])
+    got = np.stack([r.logits for r in res])
+    n_diff = (int(np.sum(got != gold["stream_logits"]))
+              if got.shape == gold["stream_logits"].shape else -1)
+    print(f"[stream] tests/golden/dscnn_kws_act8 stream_logits: {n_diff} of "
+          f"{gold['stream_logits'].size} differ")
+    if n_diff:
+        raise SystemExit("[stream] frozen stream_logits differ")
+
+    # HAR: stride-2 depthwise halos, float
+    c = SC.CASES["har"]
+    qnet_path, npz_path = SC.paths("har")
+    eng = StreamEngine(load_qnet(qnet_path), c["hop"], device="cuda",
+                       max_sessions=c["sessions"], batch_buckets=SC.BUCKETS)
+    K.reset_launch_counts()
+    got, secs = serve_fleet(eng, SC.frames("har"))
+    want = np.load(npz_path)["logits_float"]
+    n_diff = int(np.sum(got != want)) if got.shape == want.shape else -1
+    print(f"[stream] HAR float, {c['sessions']} sessions x {c['windows']} "
+          f"windows at hop {c['hop']} ({secs * 1e3:.3f} ms, first run): "
+          f"{n_diff} of {want.size} logits differ; launch counts "
+          f"{K.launch_counts()}")
+    if n_diff or any(K.launch_counts().values()):
+        raise SystemExit("[stream] HAR logits are not bit-identical or a "
+                         "kernel was launched")
+    torch.cuda.synchronize()
+
+
+def stream_times(eng, card, mode, c):
+    """Prime ms at each bucket (CUDA events around the call, its host side
+    included), ms per drain() round with every session one hop behind, the
+    fleet's windows/s, and one session's step p50 (push of one hop, wall
+    clock, logits back on the host)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve.stream import StreamEngine
+
+    rng = np.random.default_rng(3)
+    parts = []
+    for b in (1,) + tuple(eng.batch_buckets):
+        x = torch.from_numpy(rng.uniform(-1, 1, (
+            b, eng.window, eng.input_ch)).astype(np.float32)).to(eng.device)
+        parts.append(f"{b}: {time_ms(lambda x=x: eng._prime(x), reps=10):.3f}")
+    print(f"[stream] {card}: KWS {mode} prime ms by bucket "
+          f"{'; '.join(parts)}")
+    sids = list(eng._sessions)
+    rounds = []
+    for _ in range(40):
+        for sid in sids:
+            eng.push(sid, rng.uniform(-1, 1, (eng.hop, eng.input_ch)).astype(
+                np.float32), defer=True)
+        t0 = time.perf_counter()
+        n = len(eng.drain())
+        rounds.append(time.perf_counter() - t0)
+        if n != len(sids):
+            raise SystemExit(f"[stream] a drain round gave {n} windows")
+    med = statistics.median(rounds)
+    print(f"[stream] {card}: KWS {mode}, {len(sids)} sessions one hop "
+          f"behind: drain() round p50 {med * 1e3:.3f} ms (min "
+          f"{min(rounds) * 1e3:.3f}, max {max(rounds) * 1e3:.3f}, 40 "
+          f"rounds), fleet {len(sids) / med:.1f} windows/s "
+          f"({len(sids) * len(rounds) / sum(rounds):.1f} over all rounds)")
+    profile_stream(eng, rng, mode)
+    one = StreamEngine(eng.pq, eng.hop, fixed_point=eng.fixed_point,
+                       device=eng.device)
+    sid = one.open_session()
+    one.push(sid, rng.uniform(-1, 1, (eng.window, eng.input_ch)).astype(
+        np.float32))
+    steps = []
+    for _ in range(200):
+        hop = rng.uniform(-1, 1, (eng.hop, eng.input_ch)).astype(np.float32)
+        t0 = time.perf_counter()
+        one.push(sid, hop)
+        steps.append(time.perf_counter() - t0)
+    steps.sort()
+    print(f"[stream] {card}: KWS {mode}, one session, 200 single steps "
+          f"(push of one hop): p50 {statistics.median(steps) * 1e3:.3f} ms, "
+          f"p95 {steps[189] * 1e3:.3f} ms")
+
+
+def profile_stream(eng, rng, mode, rounds: int = 10):
+    """Device busy share of `drain()` rounds with every session one hop
+    behind, under torch.profiler, and the host ops and device intervals a
+    round."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    sids = list(eng._sessions)
+    hops = rng.uniform(-1, 1, (rounds, len(sids), eng.hop, eng.input_ch)
+                       ).astype(np.float32)
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for r in range(rounds):
+            for sid, fr in zip(sids, hops[r]):
+                eng.push(sid, fr, defer=True)
+            eng.drain()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    n_dev = sum(e.device_type == DeviceType.CUDA for e in events)
+    n_aten = sum(e.device_type == DeviceType.CPU and
+                 e.name.startswith("aten::") and e.cpu_parent is None
+                 for e in events)
+    busy = busy_ms(events)
+    if busy <= 0:
+        print("[stream] torch.profiler reported no device time: busy share "
+              "not measured")
+        return
+    print(f"[stream] KWS {mode}, {rounds} drain() rounds of {len(sids)} "
+          f"sessions under torch.profiler: wall {wall_ms:.3f} ms, device "
+          f"busy {busy:.3f} ms, busy share {busy / wall_ms:.4f}; a round: "
+          f"{n_dev / rounds:.0f} device intervals, {n_aten / rounds:.0f} "
+          f"top-level aten ops on the host")
+
+
+def phase_fixed_point(imgs, card):
+    """The full-width MobileNetV2 in fixed point, served and through
+    `run_qnet`, against the JAX package's x64 fixed-point logits."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import cu
+    from repro_torch.kernels import ops as K
+    from repro_torch.serve.vision import VisionEngine
+
+    want = np.load(FIXTURE + "_fixed.npz")["logits"]
+    eng = VisionEngine.from_artifact(FIXTURE + ".qnet", device="cuda",
+                                     buckets=(8,), fixed_point=True)
+    eng.warmup()
+    K.reset_launch_counts()
+    rids = [eng.submit(img) for img in imgs]
+    res = eng.run()
+    counts = K.launch_counts()
+    logits = np.stack([res[r].logits for r in rids])
+    n_diff = int(np.sum(logits != want))
+    print(f"[fixed_point] VisionEngine(fixed_point=True), 8 images: {n_diff} "
+          f"of {want.size} logits differ from the JAX package's x64 "
+          f"fixed-point run_qnet")
+    print(f"[fixed_point] launch counts {counts}: 0 by design, the kernels' "
+          f"requant epilogue is float-multiplier only (the reference's "
+          f"Pallas kernels too), so fixed point serves through the "
+          f"reference torch ops")
+    if n_diff:
+        raise SystemExit("[fixed_point] served logits are not bit-identical")
+    if any(counts.values()):
+        raise SystemExit(f"[fixed_point] a kernel was launched: {counts}")
+    x = torch.from_numpy(imgs).to(eng.device)
+    ref = cu.run_qnet(eng.pq, x, fixed_point=True).cpu().numpy()
+    n_diff = int(np.sum(ref != want))
+    print(f"[fixed_point] cu.run_qnet(fixed_point=True) on the card: "
+          f"{n_diff} of {want.size} logits differ")
+    if n_diff:
+        raise SystemExit("[fixed_point] run_qnet logits are not "
+                         "bit-identical")
+    chain = (lambda: functools.reduce(lambda y, st: st.run(y), eng.stages, x))
+    ms = time_ms(chain, reps=10)
+    print(f"[fixed_point] {card}: one micro-batch of 8 through the 4 CU "
+          f"stages, fixed point: {ms:.3f} ms (CUDA events, host included)")
+
+
 def lm_inputs(cfg, dev):
     """The [lm] phase's cases on the card: (linears, decodes). A linear is
     (label, x [M, K], w_q, scale, bits, golden key or None); a decode is
@@ -768,6 +1040,8 @@ def main() -> int:
     launches = phase_serve(imgs, fix)  # the served main path's counts
     phase_throughput(imgs, card)
     lm_rows, lm_launches = phase_lm(card)  # the LM entry points' counts
+    phase_stream(card)
+    phase_fixed_point(imgs, card)
     rows.update(lm_rows)
     launches.update({name: lm_launches[name] for name in lm_rows})
 

@@ -57,8 +57,7 @@ def build_netspec(build: Dict) -> G.NetSpec:
 
     The record names the model family plus its construction knobs; `act_bits`
     (when it differs from `bits`) and `op_act_bits` (a per-op allocation)
-    are applied on top, as in the JAX package. The 1-D families
-    (`dscnn_kws`, `dscnn_har`) are not ported yet and raise."""
+    are applied on top, as in the JAX package."""
     kind = build.get("model")
     kw = {k: v for k, v in build.items()
           if k not in ("model", "act_bits", "op_act_bits")}
@@ -68,6 +67,12 @@ def build_netspec(build: Dict) -> G.NetSpec:
     elif kind == "efficientnet_compact":
         from repro_torch.models import efficientnet as effn
         net = effn.build_compact(**kw)
+    elif kind == "dscnn_kws":
+        from repro_torch.models import dscnn1d
+        net = dscnn1d.build_kws(**kw)
+    elif kind == "dscnn_har":
+        from repro_torch.models import dscnn1d
+        net = dscnn1d.build_har(**kw)
     else:
         raise ValueError(f"model family not supported by the port: {kind!r}")
     act_bits = build.get("act_bits")

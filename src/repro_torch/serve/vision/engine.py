@@ -83,7 +83,9 @@ class EngineStats:
 
 class VisionEngine:
     """Serve a calibrated QNet through the pipelined CU stage executors on
-    one device (CUDA unless `device=` names another)."""
+    one device (CUDA unless `device=` names another). `fixed_point=True`
+    serves the integer mantissa/shift requant through the reference torch
+    ops (see `compile_stages`)."""
 
     @classmethod
     def from_artifact(cls, path: str, **kwargs) -> "VisionEngine":
@@ -100,6 +102,7 @@ class VisionEngine:
         input_bits: int = 8,
         body_fast_path: str = "auto",
         op_kernels: str = "auto",
+        fixed_point: bool = False,
         device=None,
         clock: Optional[Callable[[], float]] = None,
         max_queue: int = 4096,
@@ -115,7 +118,7 @@ class VisionEngine:
         self.stages: List[CompiledStage] = compile_stages(
             self.pq, self.plan, input_bits=input_bits,
             body_fast_path=body_fast_path, op_kernels=op_kernels,
-            device=self.device)
+            fixed_point=fixed_point, device=self.device)
         self.pipe = PipelinedExecutor(self.stages, clock=self._clock)
         self.input_shape = self.pq.spec.input_shape()  # (H, W, C)
         self._queue: List[VisionRequest] = []

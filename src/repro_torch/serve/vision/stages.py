@@ -17,6 +17,11 @@ The integer datapath of a stage runs on one of three op implementations:
 Both flags are "auto" (on when the device is CUDA), "on" or "off". On the
 CPU the kernel wrappers run their plain PyTorch versions, so "on" there
 exercises the same routing with the same bits.
+
+`fixed_point=True` serves the integer mantissa/shift requant. The kernels'
+epilogue is float-multiplier only (in the reference's Pallas kernels too),
+so fixed point runs the reference torch ops: "auto" flags resolve to off,
+and "on" with fixed point raises.
 """
 from __future__ import annotations
 
@@ -52,10 +57,12 @@ class CompiledStage:
     `invocations` counts the micro-batches it ran."""
 
     def __init__(self, spec: StageSpec, pq: cu.PreparedQNet, *,
-                 input_bits: int, fast_path: bool, op_kernels: bool):
+                 input_bits: int, fast_path: bool, op_kernels: bool,
+                 fixed_point: bool = False):
         self.spec = spec
         self.pq = pq
         self._input_bits = input_bits
+        self._fixed_point = fixed_point
         self._fast_path = fast_path and spec.cu == CC.BODY
         self._op_kernels = op_kernels
         self.invocations = 0
@@ -74,7 +81,8 @@ class CompiledStage:
             elif self._op_kernels:
                 y, s, z = K.run_block_kernels(y, block, pq, s, z)
             else:
-                y, s, z = cu.run_block(y, block, pq, s, z)
+                y, s, z = cu.run_block(y, block, pq, s, z,
+                                       self._fixed_point)
         if spec.dequantizes_output:
             y = cu.dequantize(y, s, z)
         return y
@@ -97,6 +105,7 @@ def compile_stages(
     input_bits: int = 8,
     body_fast_path: str = "auto",
     op_kernels: str = "auto",
+    fixed_point: bool = False,
     device=None,
 ) -> List[CompiledStage]:
     """Lower a CUPlan into the ordered list of stage executors.
@@ -108,6 +117,15 @@ def compile_stages(
         plan = CC.compile_net(pq.spec)
     fast = _resolve(body_fast_path, "body_fast_path", pq.device)
     kerns = _resolve(op_kernels, "op_kernels", pq.device)
+    if fixed_point and (fast or kerns):
+        # the kernels' requant epilogue is float-multiplier only; serving
+        # through them would not be run_qnet(fixed_point=True)
+        if body_fast_path == "on" or op_kernels == "on":
+            raise ValueError(
+                "body_fast_path/op_kernels='on' is incompatible with "
+                "fixed_point=True (the kernels have no fixed-point requant "
+                "mode)")
+        fast = kerns = False
     sigs = plan.stage_signatures()
     stages: List[CompiledStage] = []
     s, z = cu.input_qparams(pq)
@@ -118,7 +136,8 @@ def compile_stages(
             out_scale=out_s, out_zp=out_z, quantizes_input=(i == 0),
             dequantizes_output=(i == len(sigs) - 1), signature=sig)
         stages.append(CompiledStage(spec, pq, input_bits=input_bits,
-                                    fast_path=fast, op_kernels=kerns))
+                                    fast_path=fast, op_kernels=kerns,
+                                    fixed_point=fixed_point))
         s, z = out_s, out_z
     return stages
 

@@ -1,7 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 over geometries the main path does not reach (odd sizes, 5x5, stride 2,
 nonzero zero points, residual, ragged tiles, every pointwise tile), and the
-served golden route on the card. Exact equality for the integer kernels. The split-K,
+served golden route on the card; then the fixed-point requant, the integer
+skip-add, the 1-D convolutions (float64 and float32 `F.conv1d`), fixed-point
+`run_qnet` and the streaming engine on its full-width fixtures, each against
+the port on the CPU. Exact equality for the integer kernels and routes. The split-K,
 split-E, variant and determinism cases check `plan`'s choices through the
 kernels' per-variant counters.
 The float LM kernels sum in another order than their plain versions: the
@@ -45,6 +48,7 @@ from repro_torch.kernels.quant_matmul import (
     quant_matmul,
     quant_matmul_plain,
 )
+from repro_torch.core.qnet import load_qnet
 from repro_torch.models.lm.common import kv_quant
 from repro_torch.serve.vision import VisionEngine
 
@@ -672,3 +676,139 @@ def test_decode_attention_launcher_refuses_a_drifted_layout(dev, monkeypatch,
     with pytest.raises(RuntimeError, match="launch failed"):
         decode_attention(q, k, v, 257, ks, vs)
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# fixed point, the 1-D ops and the streaming engine on the card, against the
+# port on the CPU (which the CPU tests hold against the JAX package)
+# ---------------------------------------------------------------------------
+
+
+def _on(dev, *arrays):
+    return [torch.from_numpy(a).to(dev) for a in arrays]
+
+
+@pytest.mark.parametrize("shift", [0, 1, 2, 17, 31, 40, 44, 47])
+def test_requantize_fixedpoint_on_card(dev, shift):
+    """int64 products, the sign * 2^(shift-1) rounding bias and the
+    arithmetic right shift on CUDA, at the shift edges: negative
+    accumulators, ties, shift 0, shifts over 40."""
+    from repro_torch.core.integer_ops import requantize_fixedpoint
+
+    rng = np.random.default_rng(100 + shift)
+    acc = np.concatenate([rng.integers(-(2**31), 2**31 - 1, 4096),
+                          [0, 1, -1, 2**31 - 1, -(2**31), 3, -3, 5, -5]]
+                         ).astype(np.int32)
+    mant = rng.integers(2**30, 2**31, acc.size).astype(np.int64)
+    if shift > 0:
+        mant[-4:] = np.int64(1) << (shift - 1)
+    sh = np.full(acc.shape, shift, np.int32)
+    want = requantize_fixedpoint(*(torch.from_numpy(a)
+                                   for a in (acc, mant, sh)))
+    got = requantize_fixedpoint(*_on(dev, acc, mant, sh))
+    assert got.dtype == torch.int32
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_int_residual_add_on_card(dev, seed):
+    from repro_torch.core.integer_ops import (int_residual_add,
+                                              residual_fixed_consts)
+
+    rng = np.random.default_rng(200 + seed)
+    a_s, b_s, y_s = rng.uniform(0.005, 0.05, 3)
+    a_z, b_z, y_z = rng.uniform(-40, 0, 3)
+    consts = residual_fixed_consts(a_s, a_z, b_s, b_z, y_s, y_z)
+    a, b = (rng.integers(0, 256, (8, 25, 64)).astype(np.int32)
+            for _ in range(2))
+    want = int_residual_add(torch.from_numpy(a), torch.from_numpy(b),
+                            consts, 255)
+    got = int_residual_add(*_on(dev, a, b), consts, 255)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("k,s", [(3, 1), (5, 2), (5, 1)])
+@pytest.mark.parametrize("pad", ["SAME", (0, 0), (2, 1), (1, 3)])
+def test_conv1d_ops_on_card(dev, k, s, pad):
+    """`F.conv1d` in float64, and in float32 with cuDNN's TF32 off inside
+    the op (left on outside, its default), equal the CPU port; so does the
+    shifted int32 depthwise."""
+    from repro_torch.core import integer_ops as io
+
+    rng = np.random.default_rng(10 * k + s)
+    x = rng.integers(0, 256, (64, 49, 10)).astype(np.int32)
+    w = rng.integers(-127, 128, (k, 10, 64)).astype(np.int32)
+    wd = rng.integers(-127, 128, (k, 10)).astype(np.int32)
+    xc = torch.from_numpy(x)
+    want = io.int_conv1d(xc, torch.from_numpy(w.astype(np.float64)), s, pad)
+    xd, w64, w32 = _on(dev, x, w.astype(np.float64), w.astype(np.float32))
+    assert torch.equal(io.int_conv1d(xd, w64, s, pad).cpu(), want)
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        assert io.f32_accum_exact(w, 255)
+        got = io.int_conv1d_f32(xd, w32, s, pad)
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+    assert torch.equal(got.cpu(), want)
+    want = io.int_depthwise1d_shifts(xc, torch.from_numpy(wd), s, pad)
+    got = io.int_depthwise1d_shifts(xd, *_on(dev, wd), s, pad)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("model,bits", [("mobilenet_v2", 4),
+                                        ("mobilenet_v2", 8),
+                                        ("efficientnet_compact", 4),
+                                        ("efficientnet_compact", 8),
+                                        ("dscnn_kws", 8)])
+def test_run_qnet_fixed_point_on_card(dev, model, bits):
+    """The goldens in fixed point on the card equal the CPU port, which the
+    CPU tests hold against the JAX package under x64."""
+    from repro_torch.core import cu
+
+    base = os.path.join(GOLDEN, f"{model}_act{bits}")
+    qnet, x = load_qnet(base + ".qnet"), np.load(base + ".npz")["input"]
+    want = cu.run_qnet(qnet, x, device="cpu", fixed_point=True)
+    got = cu.run_qnet(qnet, x, device=dev, fixed_point=True)
+    assert torch.equal(got.cpu(), want)
+
+
+def _stream_cases():
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_stream_cases
+    return torch_stream_cases
+
+
+@pytest.mark.parametrize("case,fixed", [("kws", False), ("kws", True),
+                                        ("har", False)])
+def test_stream_engine_on_card(dev, case, fixed):
+    """The full-width streaming fixtures served on the card through
+    `drain()`'s bucketed batches: 0 logits differ from the fixture (the JAX
+    package's `run_qnet` over every window, which the CPU port equals)."""
+    from repro_torch.serve.stream import StreamEngine
+
+    SC = _stream_cases()
+    c = SC.CASES[case]
+    qnet_path, npz_path = SC.paths(case)
+    want = np.load(npz_path)["logits_fixed" if fixed else "logits_float"]
+    eng = StreamEngine(load_qnet(qnet_path), c["hop"], fixed_point=fixed,
+                       device=dev, max_sessions=c["sessions"],
+                       batch_buckets=SC.BUCKETS)
+    assert eng.device.type == "cuda"
+    sids = [eng.open_session() for _ in range(c["sessions"])]
+    for sid, fr in zip(sids, SC.frames(case)):
+        eng.push(sid, fr, defer=True)
+    by = {(r.sid, r.window): r.logits for r in eng.drain()}
+    got = np.stack([by[(sid, w)] for sid in sids
+                    for w in range(c["windows"])])
+    assert int(np.sum(got != want)) == 0
+    bufs = eng._sessions[sids[0]].buffers
+    assert all(v.device.type == "cuda" for v in bufs.values())
+    # one session stepped alone on the card equals its batched rows
+    one = StreamEngine(load_qnet(qnet_path), c["hop"], fixed_point=fixed,
+                       device=dev)
+    res = one.push(one.open_session(), SC.frames(case)[0])
+    np.testing.assert_array_equal(np.stack([r.logits for r in res]),
+                                  want[:c["windows"]])

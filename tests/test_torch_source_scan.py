@@ -1,7 +1,8 @@
 """The port stands alone: no file of `src/repro_torch/`, nor
 `chip_smoke.py`, imports JAX or the JAX package, and every entry point
-called without `device=` on a machine without CUDA raises instead of
-running on the CPU."""
+(the streaming engine and fixed-point inference included) called without
+`device=` on a machine without CUDA raises instead of running on the
+CPU."""
 import ast
 import pathlib
 
@@ -11,6 +12,7 @@ import torch
 
 from repro_torch.convert import lm_from_reference
 from repro_torch.core import cu, qnet as Q
+from repro_torch.serve.stream import StreamEngine, reference_windows
 from repro_torch.serve.vision import VisionEngine, compile_stages
 from tests.regen_golden import fixture_paths
 
@@ -33,7 +35,8 @@ def test_port_files_found():
     assert len(PORT_FILES) > 15
     for rel in ("kernels/ops.py", "kernels/quant_matmul.py",
                 "kernels/decode_attention.py", "models/lm/common.py",
-                "configs/llama32_1b.py"):
+                "configs/llama32_1b.py", "serve/stream.py",
+                "models/dscnn1d.py"):
         assert ROOT / "src" / "repro_torch" / rel in PORT_FILES
 
 
@@ -46,21 +49,30 @@ def test_no_jax_or_reference_import(path):
 
 
 @pytest.mark.parametrize("entry", ["prepare_qnet", "run_qnet",
+                                   "run_qnet(fixed_point=True)",
                                    "compile_stages", "VisionEngine",
                                    "VisionEngine.from_artifact",
-                                   "lm_from_reference"])
+                                   "lm_from_reference", "StreamEngine",
+                                   "reference_windows"])
 def test_entry_points_refuse_to_run_without_cuda(entry, monkeypatch):
     path = fixture_paths("mobilenet_v2", 8)[0]
     qnet = Q.load_qnet(path)
+    kws = Q.load_qnet(fixture_paths("dscnn_kws", 8)[0])
     x = np.zeros((1, 32, 32, 3), np.float32)
+    frames = np.zeros((32, 6), np.float32)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     call = {"prepare_qnet": lambda: cu.prepare_qnet(qnet),
             "run_qnet": lambda: cu.run_qnet(qnet, x),
+            "run_qnet(fixed_point=True)":
+                lambda: cu.run_qnet(qnet, x, fixed_point=True),
             "compile_stages": lambda: compile_stages(qnet),
             "VisionEngine": lambda: VisionEngine(qnet),
             "VisionEngine.from_artifact":
                 lambda: VisionEngine.from_artifact(path),
             "lm_from_reference":
-                lambda: lm_from_reference({"k": x, "v": x})}[entry]
+                lambda: lm_from_reference({"k": x, "v": x}),
+            "StreamEngine": lambda: StreamEngine(kws, 4),
+            "reference_windows":
+                lambda: reference_windows(kws, frames, 32, 4)}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()

@@ -100,7 +100,7 @@ def test_golden_qnet_loads_equal_to_reference(case):
     assert Q.read_qnet_meta(path) == RQ.read_qnet_meta(path)
 
 
-@pytest.mark.parametrize("case", GOLDEN_2D, ids=lambda c: f"{c[0]}_act{c[1]}")
+@pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}_act{c[1]}")
 def test_qnet_from_reference_equals_loaded_artifact(case):
     path, _ = fixture_paths(*case)
     ref = RQ.load_qnet(path, build_net(*case))
@@ -119,7 +119,9 @@ def test_build_record_act_bit_rewrites_match_reference():
 
 def test_unsupported_family_raises():
     with pytest.raises(ValueError, match="not supported"):
-        Q.build_netspec({"model": "dscnn_kws", "bits": 8})
+        Q.build_netspec({"model": "resnet50", "bits": 8})
+    with pytest.raises(ValueError, match="unknown model family"):
+        RQ.build_netspec({"model": "resnet50", "bits": 8})
 
 
 MIXED = os.path.join(os.path.dirname(__file__), "..", "experiments",
