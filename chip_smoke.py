@@ -10,10 +10,14 @@ last line:
   2. build: every kernel of `src/repro_torch/kernels/csrc/` compiled with
      nvcc for sm_90a, one nvcc a source, all at once;
   3. kernels: the full-width MobileNetV2 fixture (alpha 1.0, 224x224, act8,
-     `tests/golden_torch/`) is walked on its 8 images with the plain
-     PyTorch route, and every kernel call the served path makes (irb0/dw,
-     irb0/project, irb1..irb16, tail/pw, classifier/fc) is run on exactly
-     that input, through the kernel and through its plain version: they
+     `tests/golden_torch/`) and the full-size compact EfficientNet fixture
+     (H=128, act8) are walked on their 8 images with the plain PyTorch
+     route, and every kernel call each served path makes (MobileNetV2:
+     irb0/dw, irb0/project, irb1..irb16, tail/pw, classifier/fc; the
+     EfficientNet: its 10 DW ops, 3x3 and 5x5, stride 1 and 2, and its 31
+     PW/DENSE ops, the SE squeezes on the pooled tensor included) is run
+     on exactly that input, through the kernel and through its plain
+     version: they
      must be equal (tolerance: exact), and a second call must give the same
      bits; K2's lines name the tile and K slices its `plan` chose, K4's the
      tile and E slices (`splits`, `eslice`), and the phase fails unless
@@ -25,7 +29,8 @@ last line:
      or int8 operations at 1979 TOP/s; activations counted at 1 byte a
      value, since every one lies in [0, 255]), and `device_ms` and
      `library_device_ms`, the kernel's and the library call's work on the
-     device alone;
+     device alone; a summary a net, and the JSON rows sum both nets'
+     micro-batches;
   4. serve: `VisionEngine.from_artifact` on `cuda` serves the 8 images as
      8 requests, with the launch counters set to 0 just before and read
      just after (K4's by variant too: the 11 launches at 14x14 and 7x7
@@ -85,8 +90,37 @@ last line:
      fixed-point logits (`..._act8_fixed.npz`). The kernels' epilogue is
      float-multiplier only, so fixed point runs the reference torch ops:
      launch counts printed, and they must be 0; ms per micro-batch of 8;
-  9. the kernels' JSON line (with `device_ms`, `library_device_ms` and
-     K6's `cold_device_ms` beside the keys the contract names), the card
+  9. fleet: both fixtures served together on `cuda` by one
+     `MultiModelEngine` (bucket 8, interleaved requests with mixed
+     deadlines, none of which expires), with the launch counters set to 0
+     just before and read just after: every logit of each net must equal
+     the JAX package's (0 of 8000 each), with a shared `Tracer` and
+     `MetricsRegistry` as without them, and each net's micro-batch must
+     launch what `ops.served_launches` works out from its NetSpec
+     (MobileNetV2: K2 3, K3 1, K4 16 as 5 `single` + 11 `split_e`; the
+     EfficientNet: K2 31, K3 10). The trace is saved to
+     `smoke_out/fleet_trace.json` (metrics beside it), must pass
+     `validate_chrome_trace` with every request span closed, and
+     `python -m repro_torch.obs summarize` prints its top spans. Then
+     each net alone in a closed loop (rounds of 256 queued requests for
+     LOOP_S seconds, buckets 1/2/4/8), obs off and on in turns, 3 pairs:
+     FPS, p50, the modeled watts and FPS/W of `EngineStats`, and the
+     measured watts and FPS/W from `nvidia-smi --query-gpu=power.draw`
+     sampled every 100 ms by a subprocess during the loop (the paper's
+     ZCU102 FPS/W beside them); obs-on's FPS cost by pair. Then a
+     power-capped fleet: slo 0 and 1 requests under a budget halfway
+     between the idle draw and idle plus the unconstrained run's modeled
+     dispatched watts (window: a quarter of that run's wall time),
+     `shed_slo=0`; the rolling watts must stay under the budget at every
+     dispatch, no slo=1 request may be shed, the first `run()` must
+     account for every request (ok + shed + deferred + expired) and later
+     ones serve the deferred. The phase measures first, and prints last,
+     the card's draw at rest and under a dense int8 matmul loop (the
+     median of 100 ms samples over 6 s each) beside
+     `BACKEND_WATTS["cuda"]`;
+ 10. the kernels' JSON line (with `device_ms`, `library_device_ms` and
+     K6's `cold_device_ms` beside the keys the contract names; K2-K4's
+     `launches` are the fleet run's, one micro-batch of each net), the card
      line, and
      {"ok": true, "device": {"platform": "gpu", ...}} as the last line.
 
@@ -105,6 +139,15 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "golden_torch",
                        "mobilenet_v2_alpha1_224_act8")
+EFFNET = os.path.join(ROOT, "tests", "golden_torch",
+                      "efficientnet_compact_h128_act8")
+# the [fleet] phase's nets: fixture path without extension, input size
+FLEET = {"mobilenet_v2": (FIXTURE, 224), "efficientnet_compact": (EFFNET, 128)}
+# the paper's FPS/W on the ZCU102 (its Table 6), printed for comparison only
+PAPER_FPS_PER_W = {"mobilenet_v2": 47.4, "efficientnet_compact": 233.3}
+OUT_DIR = os.path.join(ROOT, "smoke_out")  # the trace and metrics of [fleet]
+LOOP_S = 3.0  # a closed-loop run of [fleet]
+POWER_WINDOW_S = 6.0  # nvidia-smi sampling of the idle and busy draw
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core peak, same source
 BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak, same source
@@ -147,11 +190,11 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def images():
-    """The fixture's inputs, regenerated from their seed."""
+def images(hw: int = 224):
+    """A fixture's 8 inputs, regenerated from their seed."""
     import numpy as np
     return np.random.default_rng(0).uniform(
-        -1, 1, (8, 224, 224, 3)).astype(np.float32)
+        -1, 1, (8, hw, hw, 3)).astype(np.float32)
 
 
 def digests(act) -> list:
@@ -216,8 +259,6 @@ def main_path_calls(pq, x):
         depthwise_conv_q, depthwise_conv_q_plain)
     from repro_torch.kernels.fused_irb import (
         fused_irb_q, fused_irb_q_plain, plan as irb_plan)
-    from repro_torch.kernels.pointwise_conv import (
-        plan as pw_plan, pointwise_conv_q, pointwise_conv_q_plain)
 
     calls = []
     s, z = cu.input_qparams(pq)
@@ -265,29 +306,46 @@ def main_path_calls(pq, x):
                         bytes_moved(h_in.numel(), b * ho * wo * c,
                                     nbytes(*args[1:])),
                         2 * b * ho * wo * c * op.kernel ** 2, ""))
-                elif op.kind in (G.PW, G.DENSE):
-                    kw = dict(qmax=pop.qmax)
-                    args = (h_in, pop.w_kern, pop.mult, pop.zpc, pop.bias_q)
-                    k_dim, n_dim = pop.w_kern.shape
-                    m = h_in.numel() // k_dim
-                    xf = h_in.reshape(m, k_dim).to(torch.float32)
-                    wf = pop.w_kern.to(torch.float32)
-                    pw = pw_plan(m, k_dim, n_dim)
-                    calls.append((
-                        "pointwise_conv_q", op.name,
-                        lambda a=args, k=kw: pointwise_conv_q(*a, **k),
-                        lambda a=args, k=kw: pointwise_conv_q_plain(*a, **k),
-                        lambda xf=xf, wf=wf: torch.matmul(xf, wf),
-                        bytes_moved(h_in.numel(), m * n_dim,
-                                    nbytes(*args[1:])),
-                        2 * m * k_dim * n_dim,
-                        f" tile={pw.tile} splits={pw.splits}"))
+                elif op.kind in (G.PW, G.DENSE) and op.act != G.HSIGMOID:
+                    calls.append(pw_call(h_in, pop, op.name))
                 h_in = cu.run_qop(h_in, pop)
+                if block.se is not None and block.se_after == op.name:
+                    # the SE squeeze takes K2 on the pooled tensor; the
+                    # hsigmoid excite and the gate are torch ops
+                    calls.append(pw_call(
+                        cu.mean_round(h_in), pq.ops[block.se.squeeze.name],
+                        block.se.squeeze.name))
+                    h_in = cu.se_gate(h_in, block, pq)
         y, s, z = cu.run_block(y, block, pq, s, z)
     return calls
 
 
-def phase_kernels(pq, x):
+def pw_call(h_in, pop, label):
+    """One K2 call of the main path as `main_path_calls` lists it."""
+    import torch
+
+    from repro_torch.kernels.pointwise_conv import (
+        plan as pw_plan, pointwise_conv_q, pointwise_conv_q_plain)
+
+    kw = dict(qmax=pop.qmax)
+    args = (h_in, pop.w_kern, pop.mult, pop.zpc, pop.bias_q)
+    k_dim, n_dim = pop.w_kern.shape
+    m = h_in.numel() // k_dim
+    xf = h_in.reshape(m, k_dim).to(torch.float32)
+    wf = pop.w_kern.to(torch.float32)
+    pw = pw_plan(m, k_dim, n_dim)
+    return ("pointwise_conv_q", label,
+            lambda a=args, k=kw: pointwise_conv_q(*a, **k),
+            lambda a=args, k=kw: pointwise_conv_q_plain(*a, **k),
+            lambda xf=xf, wf=wf: torch.matmul(xf, wf),
+            bytes_moved(h_in.numel(), m * n_dim, nbytes(*args[1:])),
+            2 * m * k_dim * n_dim, f" tile={pw.tile} splits={pw.splits}")
+
+
+def phase_kernels(nets):
+    """Each kernel call of each net's main path (`nets`: (label, prepared
+    net, images on the card)) against its plain version, then timed. Returns
+    the rows summed over every net's micro-batch."""
     import torch
 
     from repro_torch.kernels.fused_irb import fused_irb_q
@@ -296,53 +354,62 @@ def phase_kernels(pq, x):
           "path's inputs, batch 8 (tolerance: exact), called twice (the "
           "same bits)")
     rows = {}
-    for name, label, kern, plain, lib, (nb, nb32), ops, note in \
-            main_path_calls(pq, x):
-        before = dict(fused_irb_q.variants)
-        got = kern()
-        took = [v for v, n in fused_irb_q.variants.items() if n != before[v]]
-        again, want = kern(), plain()
-        torch.cuda.synchronize()
-        if name == "fused_irb_q" and got.shape[1] in SPLIT_E_HW and \
-                took != ["split_e"]:
-            raise SystemExit(f"[kernels] {name}[{label}] at "
-                             f"{got.shape[1]}x{got.shape[2]} took {took}, "
-                             f"not the split-E variant")
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-        if got.shape != want.shape or err != 0:
-            raise SystemExit(f"[kernels] {name}[{label}] differs from its "
-                             f"plain version: max |err| {err}")
-        if not torch.equal(got, again):
-            raise SystemExit(f"[kernels] {name}[{label}]: two calls gave "
-                             f"different bits")
-        ms, plain_ms = time_ms(kern), time_ms(plain)
-        lib_ms = time_ms(lib) if lib is not None else None
-        dev_ms = time_ms(kern, device_only=True)
-        lib_dev_ms = (time_ms(lib, device_only=True) if lib is not None
-                      else None)
-        bytes_ms = nb / HBM_BYTES_PER_S * 1e3
-        bytes32_ms = nb32 / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / INT8_OPS_PER_S * 1e3
-        print(f"  {name}[{label}] {tuple(got.shape)}{note} max_abs_err={err} "
-              f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
-              f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} "
-              f"bound_ms={max(bytes_ms, ops_ms):.5f} "
-              f"({'bytes' if bytes_ms >= ops_ms else 'operations'}; "
-              f"int32 activations: {max(bytes32_ms, ops_ms):.5f}) "
-              f"device_ms={dev_ms:.4f} library_device_ms="
-              f"{'null' if lib_dev_ms is None else f'{lib_dev_ms:.4f}'}")
-        r = _row(rows, name, err, ms, plain_ms, lib_ms, bytes_ms, ops_ms,
-                 dev_ms, lib_dev_ms)
-        r["bound32"] += max(bytes32_ms, ops_ms)
-    for name, r in rows.items():
-        print(f"[kernels] {name}: ms {r['ms']:.4f} over the micro-batch, "
-              f"bound_ms {r['bound']:.5f} (1-byte activations), "
-              f"{r['bound32']:.5f} (int32 activations)")
-    for name, r in rows.items():
-        print(f"[kernels] {name}: over the micro-batch, library_ms "
-              f"{_opt(r, 'lib_ms')}; device work alone: device_ms "
-              f"{r['dev_ms']:.4f}, library_device_ms "
-              f"{_opt(r, 'lib_dev_ms')}")
+    for net, pq, x in nets:
+        per_net = {}
+        for name, label, kern, plain, lib, (nb, nb32), ops, note in \
+                main_path_calls(pq, x):
+            before = dict(fused_irb_q.variants)
+            got = kern()
+            took = [v for v, n in fused_irb_q.variants.items()
+                    if n != before[v]]
+            again, want = kern(), plain()
+            torch.cuda.synchronize()
+            if name == "fused_irb_q" and got.shape[1] in SPLIT_E_HW and \
+                    took != ["split_e"]:
+                raise SystemExit(f"[kernels] {name}[{label}] at "
+                                 f"{got.shape[1]}x{got.shape[2]} took "
+                                 f"{took}, not the split-E variant")
+            err = int((got.to(torch.int64) - want.to(torch.int64)
+                       ).abs().max())
+            if got.shape != want.shape or err != 0:
+                raise SystemExit(f"[kernels] {net} {name}[{label}] differs "
+                                 f"from its plain version: max |err| {err}")
+            if not torch.equal(got, again):
+                raise SystemExit(f"[kernels] {net} {name}[{label}]: two "
+                                 f"calls gave different bits")
+            ms, plain_ms = time_ms(kern), time_ms(plain)
+            lib_ms = time_ms(lib) if lib is not None else None
+            dev_ms = time_ms(kern, device_only=True)
+            lib_dev_ms = (time_ms(lib, device_only=True) if lib is not None
+                          else None)
+            bytes_ms = nb / HBM_BYTES_PER_S * 1e3
+            bytes32_ms = nb32 / HBM_BYTES_PER_S * 1e3
+            ops_ms = ops / INT8_OPS_PER_S * 1e3
+            print(f"  {net} {name}[{label}] {tuple(got.shape)}{note} "
+                  f"max_abs_err={err} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"library_ms="
+                  f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} "
+                  f"bound_ms={max(bytes_ms, ops_ms):.5f} "
+                  f"({'bytes' if bytes_ms >= ops_ms else 'operations'}; "
+                  f"int32 activations: {max(bytes32_ms, ops_ms):.5f}) "
+                  f"device_ms={dev_ms:.4f} library_device_ms="
+                  f"{'null' if lib_dev_ms is None else f'{lib_dev_ms:.4f}'}")
+            for table in (rows, per_net):
+                r = _row(table, name, err, ms, plain_ms, lib_ms, bytes_ms,
+                         ops_ms, dev_ms, lib_dev_ms)
+                r["bound32"] += max(bytes32_ms, ops_ms)
+                r["calls"] = r.get("calls", 0) + 1
+        for name, r in per_net.items():
+            print(f"[kernels] {net} {name}: {r['calls']} calls, ms "
+                  f"{r['ms']:.4f} over the micro-batch, bound_ms "
+                  f"{r['bound']:.5f} (1-byte activations), "
+                  f"{r['bound32']:.5f} (int32 activations)")
+        for name, r in per_net.items():
+            print(f"[kernels] {net} {name}: over the micro-batch, "
+                  f"plain_ms {r['plain_ms']:.4f}, library_ms "
+                  f"{_opt(r, 'lib_ms')}; device work alone: device_ms "
+                  f"{r['dev_ms']:.4f}, library_device_ms "
+                  f"{_opt(r, 'lib_dev_ms')}")
     return rows
 
 
@@ -702,6 +769,341 @@ def phase_fixed_point(imgs, card):
           f"stages, fixed point: {ms:.3f} ms (CUDA events, host included)")
 
 
+class PowerSampler:
+    """`nvidia-smi --query-gpu=power.draw` every 100 ms in a subprocess, for
+    as long as the `with` block runs; a reader thread stamps each sample
+    with the host clock, so `median(t0, t1)` takes the draw over a window
+    of the host's `time.perf_counter()`."""
+
+    def __enter__(self):
+        import threading
+
+        self.samples = []
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "-i", "0", "--query-gpu=power.draw",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        self.thread = threading.Thread(target=self._read, daemon=True)
+        self.thread.start()
+        return self
+
+    def _read(self):
+        for line in self.proc.stdout:
+            try:
+                watts = float(line.strip())
+            except ValueError:  # "[N/A]" or a partial line
+                continue
+            self.samples.append((time.perf_counter(), watts))
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        try:
+            self.proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+        self.thread.join(timeout=10)
+
+    def median(self, t0: float, t1: float, least: int = 5):
+        """(median watts, number of samples) of the samples in [t0, t1]."""
+        got = [w for t, w in self.samples if t0 <= t <= t1]
+        if len(got) < least:
+            raise SystemExit(f"[fleet] nvidia-smi gave {len(got)} power "
+                             f"samples in {t1 - t0:.2f} s")
+        return statistics.median(got), len(got)
+
+
+def power_constants(sampler, dev):
+    """The card's draw at rest and held busy by a dense int8 matmul loop
+    (the counterpart of the CPU calibration's integer matmul spin): the
+    median of 100 ms samples over 6 s each."""
+    import torch
+
+    torch.cuda.synchronize()
+    time.sleep(2.0)  # let the earlier phases' draw fall off
+    t0 = time.perf_counter()
+    time.sleep(POWER_WINDOW_S)
+    idle, n_idle = sampler.median(t0, time.perf_counter())
+    gen = torch.Generator(device=dev).manual_seed(0)
+    a, b = (torch.randint(-128, 128, (8192, 8192), generator=gen,
+                          device=dev, dtype=torch.int8) for _ in range(2))
+    for _ in range(3):
+        torch._int_mm(a, b)
+    torch.cuda.synchronize()
+    t_ramp = time.perf_counter()
+    t0 = t_ramp + 1.0  # the first second ramps the clocks up
+    while time.perf_counter() < t0 + POWER_WINDOW_S:
+        for _ in range(8):
+            torch._int_mm(a, b)
+        torch.cuda.synchronize()
+    busy, n_busy = sampler.median(t0, time.perf_counter())
+    del a, b
+    torch.cuda.empty_cache()
+    return idle, n_idle, busy, n_busy
+
+
+def fleet_engines(qnets, buckets, **kw):
+    from repro_torch.serve.vision import VisionEngine
+
+    return {m: VisionEngine(q, device="cuda", buckets=buckets, name=m, **kw)
+            for m, q in qnets.items()}
+
+
+def fleet_serve(qnets, imgs, obs: bool):
+    """Both nets' 8 images through one `MultiModelEngine`, interleaved, with
+    mixed deadlines (none, or 60 to 80 s away: none expires), with the
+    launch counters set to 0 just before the run and read just after."""
+    from repro_torch.kernels import ops as K
+    from repro_torch.kernels.fused_irb import fused_irb_q
+    from repro_torch.obs import MetricsRegistry, Tracer
+    from repro_torch.serve.vision import MultiModelEngine
+
+    tracer, reg = (Tracer(), MetricsRegistry()) if obs else (None, None)
+    mm = MultiModelEngine(fleet_engines(qnets, (8,), tracer=tracer,
+                                        metrics=reg))
+    mm.warmup()
+    now = time.perf_counter()
+    handles = {m: [] for m in qnets}
+    for i in range(8):
+        for j, m in enumerate(qnets):
+            k = (i + j) % 3
+            handles[m].append(mm.submit(
+                m, imgs[m][i], deadline_s=None if k == 0
+                else now + 50.0 + 10.0 * k))
+    K.reset_launch_counts()
+    res = mm.run()
+    counts, variants = K.launch_counts(), dict(fused_irb_q.variants)
+    logits = {m: [res[h].logits for h in hs] for m, hs in handles.items()}
+    return mm, tracer, reg, logits, counts, variants
+
+
+def fleet_exact(qnets, imgs, want, card):
+    """Part 1: exactness, launches a micro-batch, the trace and its
+    summary. Returns the launch counts of the obs-off run."""
+    import numpy as np
+
+    from repro_torch.core import compiler as CC
+    from repro_torch.kernels import ops as K
+    from repro_torch.obs import validate_chrome_trace
+
+    runs = {obs: fleet_serve(qnets, imgs, obs) for obs in (False, True)}
+    mm, _, _, logits, counts, variants = runs[False]
+    expect = dict.fromkeys(counts, 0)
+    for m, eng in mm.engines.items():
+        per = K.served_launches(CC.compile_net(eng.pq.spec))
+        batches = eng.stats().micro_batches
+        print(f"[fleet] {m}: {batches} micro-batch of 8; launches a "
+              f"micro-batch worked out from its NetSpec: "
+              f"{ {k: v for k, v in per.items() if v} }")
+        for k, v in per.items():
+            expect[k] += v * batches
+    print(f"[fleet] launch counts of the MultiModelEngine run: {counts}; "
+          f"fused_irb_q by variant {variants}; dispatch_log "
+          f"{mm.dispatch_log}")
+    if counts != expect:
+        raise SystemExit(f"[fleet] launches {counts} != expected {expect}")
+    n_mnv2 = mm.engines["mobilenet_v2"].stats().micro_batches
+    if variants != {k: v * n_mnv2 for k, v in EXPECTED_IRB_VARIANTS.items()}:
+        raise SystemExit(f"[fleet] fused_irb_q variants {variants}")
+    for m in qnets:
+        got = np.stack(logits[m])
+        on = np.stack(runs[True][3][m])
+        n_diff = int(np.sum(got != want[m]))
+        n_obs = int(np.sum(on != got))
+        print(f"[fleet] {m}: {n_diff} of {want[m].size} logits differ from "
+              f"the JAX package's run_qnet; obs on against obs off: "
+              f"{n_obs} differ")
+        if n_diff or n_obs:
+            raise SystemExit(f"[fleet] {m}: logits are not bit-identical")
+    mm_on, tracer, reg = runs[True][:3]
+    os.makedirs(OUT_DIR, exist_ok=True)
+    trace_path = tracer.save(os.path.join(OUT_DIR, "fleet_trace.json"))
+    metrics_path = reg.save(os.path.join(OUT_DIR, "fleet_metrics.json"))
+    with open(trace_path) as f:
+        doc = json.load(f)
+    errors = validate_chrome_trace(doc)
+    spans = {}
+    for ev in doc["traceEvents"]:
+        if ev.get("name") == "request" and ev["ph"] in ("b", "e"):
+            spans.setdefault((ev["cat"], ev["id"]), []).append(ev["ph"])
+    closed = sum(v == ["b", "e"] for v in spans.values())
+    print(f"[fleet] trace: {len(doc['traceEvents'])} events, "
+          f"validate_chrome_trace: {len(errors)} violations; {closed} of "
+          f"{len(spans)} request spans closed ({2 * 8} submitted)")
+    if errors or closed != len(spans) or len(spans) != 16:
+        raise SystemExit(f"[fleet] trace invalid or a request span open: "
+                         f"{errors[:5]}")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs", "summarize", "--trace",
+         trace_path, "--metrics", metrics_path, "--top", "10"],
+        capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+    if out.returncode:
+        raise SystemExit(f"[fleet] summarize failed: {out.stderr}")
+    for line in out.stdout.splitlines():
+        if not line.startswith(("  gauge", "  counter", "  histogram")):
+            print(f"[fleet] summarize| {line}")
+    return counts
+
+
+def fleet_closed_loop(qnets, imgs, sampler, card):
+    """Part 2: each net alone, closed loop, buckets 1/2/4/8, obs off and on
+    in turns (3 pairs). A run submits rounds of 256 requests and drains
+    them for LOOP_S seconds while nvidia-smi samples the draw."""
+    from repro_torch.obs import MetricsRegistry, Tracer
+
+    summary = {}
+    for m, q in qnets.items():
+        runs = {False: [], True: []}
+        for pair in range(3):
+            for obs in (False, True):
+                tracer, reg = ((Tracer(), MetricsRegistry()) if obs
+                               else (None, None))
+                eng = fleet_engines({m: q}, (1, 2, 4, 8), tracer=tracer,
+                                    metrics=reg)[m]
+                eng.warmup()
+                n, t0 = 0, time.perf_counter()
+                while n == 0 or time.perf_counter() - t0 < LOOP_S:
+                    for i in range(256):
+                        eng.submit(imgs[m][i % len(imgs[m])])
+                    n += sum(r.status == "ok" for r in eng.run().values())
+                t1 = time.perf_counter()
+                st = eng.stats()
+                watts, n_w = sampler.median(t0 + 0.3, t1)
+                fps = n / (t1 - t0)
+                runs[obs].append((fps, st.latency_p50_s, st.fps_per_watt,
+                                  st.watts, watts, fps / watts))
+                print(f"[fleet] {card}: {m} closed loop, obs "
+                      f"{'on ' if obs else 'off'} (pair {pair}): {n} "
+                      f"requests in {t1 - t0:.3f} s, FPS {fps:.1f} (engine "
+                      f"{st.fps:.1f}), p50 {st.latency_p50_s * 1e3:.3f} ms; "
+                      f"modeled: watts {st.watts:.3f}, FPS/W "
+                      f"{st.fps_per_watt:.2f}; measured (nvidia-smi, "
+                      f"median of {n_w} samples): {watts:.2f} W, FPS/W "
+                      f"{fps / watts:.3f}")
+        off, on = runs[False], runs[True]
+        cost = [1 - b[0] / a[0] for a, b in zip(off, on)]
+        med = {k: statistics.median(r[i] for r in off)
+               for i, k in enumerate(("fps", "p50", "fpw_model", "w_model",
+                                      "w_meas", "fpw_meas"))}
+        summary[m] = med
+        print(f"[fleet] {card}: {m} obs off, median of 3: FPS "
+              f"{med['fps']:.1f}, p50 {med['p50'] * 1e3:.3f} ms, modeled "
+              f"FPS/W {med['fpw_model']:.2f} at {med['w_model']:.3f} W, "
+              f"measured FPS/W {med['fpw_meas']:.3f} at {med['w_meas']:.2f} "
+              f"W (the paper's ZCU102: {PAPER_FPS_PER_W[m]} FPS/W); obs on "
+              f"costs {', '.join(f'{c:.4f}' for c in cost)} of FPS by pair "
+              f"(median {statistics.median(cost):.4f})")
+    return summary
+
+
+def fleet_power_cap(qnets, imgs, want, card):
+    """Part 3: slo 0 and 1 requests of both nets under a fleet budget
+    between the idle draw and idle plus the unconstrained run's modeled
+    dispatched watts, with shed_slo=0."""
+    import numpy as np
+
+    from repro_torch.serve.vision import MultiModelEngine
+
+    n = 64
+    mm = MultiModelEngine(fleet_engines(qnets, (1, 2, 4, 8)))
+    mm.warmup()
+    for i in range(n):
+        for m in qnets:
+            mm.submit(m, imgs[m][i % 8])
+    t0 = time.perf_counter()
+    mm.run()
+    wall = time.perf_counter() - t0
+    stats = mm.stats()
+    idle = max(e.energy.power.idle_w for e in mm.engines.values())
+    dispatched = sum(s.watts - idle for s in stats.values())
+    budget, window = idle + 0.5 * dispatched, wall / 4
+    print(f"[fleet] unconstrained: {2 * n} requests in {wall * 1e3:.3f} ms, "
+          f"modeled draw idle {idle:.3f} W + dispatched {dispatched:.6f} W; "
+          f"capped run: budget {budget:.6f} W over a {window * 1e3:.3f} ms "
+          f"window, shed_slo=0")
+    mm = MultiModelEngine(fleet_engines(qnets, (1, 2, 4, 8), shed_slo=0),
+                          power_budget_w=budget, power_window_s=window)
+    mm.warmup()
+    gov, record, peak = mm.governor, mm.governor.record, [0.0]
+
+    def checked(joules, now):
+        record(joules, now)
+        peak[0] = max(peak[0], gov.watts(now))
+        if gov.watts(now) > gov.budget_w * (1 + 1e-12):
+            raise SystemExit(f"[fleet] rolling watts {gov.watts(now)} over "
+                             f"the budget {gov.budget_w} at a dispatch")
+
+    gov.record = checked
+    slos = {}
+    for i in range(n):
+        for m in qnets:
+            slos[mm.submit(m, imgs[m][i % 8], slo=i % 2)] = (i % 8, i % 2)
+    results, rounds = {}, 0
+    while True:
+        res = mm.run()
+        results.update(res)
+        rounds += 1
+        if rounds == 1:
+            st = mm.stats()
+            by = {s: sum(r.status == s for r in res.values())
+                  for s in ("ok", "shed", "expired")}
+            deferred = sum(mm.pending().values())
+            print(f"[fleet] capped, first run(): ok {by['ok']} + shed "
+                  f"{by['shed']} + deferred {deferred} + expired "
+                  f"{by['expired']} = {sum(by.values()) + deferred} of "
+                  f"{len(slos)} submitted")
+            if sum(by.values()) + deferred != len(slos) or not deferred:
+                raise SystemExit("[fleet] the first capped run does not "
+                                 "account for every request, or deferred "
+                                 "none")
+        if not any(mm.pending().values()) or rounds == 200:
+            break
+        time.sleep(window)
+    st = mm.stats()
+    shed = [h for h, r in results.items() if r.status == "shed"]
+    bad = [h for h, r in results.items()
+           if r.status == "ok" and not np.array_equal(
+               r.logits, want[h[0]][slos[h][0]])]
+    print(f"[fleet] capped: {rounds} run() calls; ok "
+          f"{sum(r.status == 'ok' for r in results.values())}, shed "
+          f"{len(shed)} (slo {sorted({slos[h][1] for h in shed})}), "
+          f"deferrals {sum(s.n_deferred for s in st.values())}, pending "
+          f"{sum(mm.pending().values())}; peak rolling watts at a dispatch "
+          f"{peak[0]:.6f} of {budget:.6f}; {len(bad)} served logits differ")
+    if any(slos[h][1] == 1 for h in shed) or bad or len(results) != len(
+            slos):
+        raise SystemExit("[fleet] a slo=1 request was shed, a request was "
+                         "never served, or served logits differ")
+
+
+def phase_fleet(card):
+    """Both paper networks at full size through one `MultiModelEngine` on
+    the card: exactness, launches, the trace; closed loops with modeled and
+    measured FPS/W; a power-capped run; the card's power constants."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.qnet import load_qnet
+    from repro_torch.energy import BACKEND_WATTS
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    qnets = {m: load_qnet(base + ".qnet") for m, (base, _) in FLEET.items()}
+    imgs = {m: images(hw) for m, (_, hw) in FLEET.items()}
+    want = {m: np.load(base + ".npz")["logits"]
+            for m, (base, _) in FLEET.items()}
+    with PowerSampler() as sampler:
+        idle, n_idle, busy, n_busy = power_constants(sampler, dev)
+        counts = fleet_exact(qnets, imgs, want, card)
+        fleet_closed_loop(qnets, imgs, sampler, card)
+    fleet_power_cap(qnets, imgs, want, card)
+    print(f"[fleet] {card}: power.draw at rest {idle:.2f} W (median of "
+          f"{n_idle} samples), busy under a dense int8 matmul loop "
+          f"{busy:.2f} W (median of {n_busy}); BACKEND_WATTS['cuda'] "
+          f"(busy, idle) = {BACKEND_WATTS['cuda']}")
+    return counts
+
+
 def lm_inputs(cfg, dev):
     """The [lm] phase's cases on the card: (linears, decodes). A linear is
     (label, x [M, K], w_q, scale, bits, golden key or None); a decode is
@@ -1035,13 +1437,18 @@ def main() -> int:
 
     fix = dict(np.load(FIXTURE + ".npz"))
     imgs = images()
-    pq = cu.prepare_qnet(load_qnet(FIXTURE + ".qnet"), device="cuda")
-    rows = phase_kernels(pq, torch.from_numpy(imgs).to(pq.device))
-    launches = phase_serve(imgs, fix)  # the served main path's counts
+    nets = []
+    for net, (base, hw) in FLEET.items():
+        pq = cu.prepare_qnet(load_qnet(base + ".qnet"), device="cuda")
+        nets.append((net, pq, torch.from_numpy(images(hw)).to(pq.device)))
+    rows = phase_kernels(nets)
+    del nets
+    phase_serve(imgs, fix)
     phase_throughput(imgs, card)
     lm_rows, lm_launches = phase_lm(card)  # the LM entry points' counts
     phase_stream(card)
     phase_fixed_point(imgs, card)
+    launches = phase_fleet(card)  # this slice's main path: both nets
     rows.update(lm_rows)
     launches.update({name: lm_launches[name] for name in lm_rows})
 

@@ -24,7 +24,9 @@ plain jnp, and so will the port's.
 
 `launch_counts()` reads the kernels' launch counters; K2, K4 and K5 also
 count their launches by variant (`pointwise_conv_q.variants`,
-`fused_irb_q.variants`, `quant_matmul.variants`).
+`fused_irb_q.variants`, `quant_matmul.variants`). `served_launches(plan)`
+works out from a net's CU plan the launches one micro-batch makes on the
+served route.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.core import compiler as _CC
 from repro_torch.core import cu as _cu
 from repro_torch.core import graph as G
 from repro_torch.core.quant import pack_int4, symmetric_range
@@ -57,6 +60,28 @@ def reset_launch_counts() -> None:
         k.launches = 0
         if hasattr(k, "variants"):
             k.variants = dict.fromkeys(k.variants, 0)
+
+
+def served_launches(plan: _CC.CUPlan) -> Dict[str, int]:
+    """{kernel name: launches} of one micro-batch through the stages with
+    both kernel flags on: a fusable Body block is one fused-IRB launch;
+    every other block launches the depthwise kernel a DW op and the
+    pointwise kernel a PW/DENSE op (the hsigmoid excite excepted) and an SE
+    squeeze."""
+    n = dict.fromkeys(launch_counts(), 0)
+    for cu_name, blocks in plan.stage_groups():
+        for block in blocks:
+            if cu_name == _CC.BODY and fusable_irb(block):
+                n["fused_irb_q"] += 1
+                continue
+            for op in block.ops:
+                if op.kind == G.DW:
+                    n["depthwise_conv_q"] += 1
+                elif op.kind in (G.PW, G.DENSE) and op.act != G.HSIGMOID:
+                    n["pointwise_conv_q"] += 1
+            if block.se is not None:
+                n["pointwise_conv_q"] += 1
+    return n
 
 
 def run_pw_qop(x_q: torch.Tensor, pop: _cu.PreparedQOp) -> torch.Tensor:

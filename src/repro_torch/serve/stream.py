@@ -40,8 +40,17 @@ single-session path.
 The ring buffers are uint8 tensors on the engine's device (activations
 never exceed 8 bits); the frames a session has not consumed yet stay host
 numpy until a prime or a step takes them. Everything runs as eager torch
-ops on the device. Not ported yet: `tracer=`, `metrics=`, `power_model=`
-and the modelled energy keys of `stats()`.
+ops on the device.
+
+Observability and energy, as in the reference: `tracer=` records each
+prime and step as a span and each session's lifetime as an async span,
+`metrics=` counts sessions, frames computed and reused, windows, batch
+sizes and padding, and `stats()` reports the modeled joules a step
+(`energy_j_per_window()`: the measured step time at the device's busy
+watts plus the step's activation bytes at DRAM pJ/byte), the modeled
+watts and windows a second a watt, on `power_model=` or the device's
+default power curve. Under an injected clock all of them replay
+identically.
 """
 from __future__ import annotations
 
@@ -64,7 +73,11 @@ from repro_torch.core.integer_ops import (
     quantized_op_epilogue,
 )
 from repro_torch.core.qnet import QNet
+from repro_torch.energy import model as EM
+from repro_torch.energy.power import PowerModel, default_power_model
 from repro_torch.kernels.common import same_pad_amount
+from repro_torch.obs import metrics as OM
+from repro_torch.obs import trace as OT
 
 Buffers = Dict[str, torch.Tensor]
 
@@ -531,6 +544,7 @@ class _Session:
     pending: np.ndarray  # raw frames not yet consumed, [n, C]
     last_used: float
     windows: int
+    span_id: int
 
 
 class StreamEngine:
@@ -563,6 +577,10 @@ class StreamEngine:
         batch_buckets: Sequence[int] = (2, 4, 8),
         clock=None,
         device=None,
+        tracer: Optional[OT.Tracer] = None,
+        metrics: Optional[OM.MetricsRegistry] = None,
+        name: str = "default",
+        power_model: Optional[PowerModel] = None,
     ):
         if max_sessions < 1:
             raise ValueError(f"max_sessions {max_sessions} < 1")
@@ -581,7 +599,14 @@ class StreamEngine:
         # path (no padding)
         self.batch_buckets = tuple(sorted(
             {int(b) for b in batch_buckets if int(b) > 1}))
+        self.name = name
         self._clock = time.perf_counter if clock is None else clock
+        self.tracer = tracer if tracer is not None else OT.NULL
+        self._reg = metrics if metrics is not None else OM.NULL_REGISTRY
+        # the device's power curve for the modeled J/window and FPS/Watt in
+        # stats(); injectable for determinism
+        self.power = (power_model if power_model is not None
+                      else default_power_model(self.device.type))
         _, self._in_z = cu.input_qparams(self.qnet)
 
         plan, pq, in_z = self.plan, self.pq, self._in_z
@@ -597,6 +622,7 @@ class StreamEngine:
 
         self._sessions: "OrderedDict[str, _Session]" = OrderedDict()
         self._sid_counter = itertools.count()
+        self._span_ids = itertools.count(1)
         self._windows = 0
         self._primes = 0
         self._evicted = 0
@@ -607,6 +633,41 @@ class StreamEngine:
         self._windows_batched = 0
         self._batched_calls = 0
         self._pad_rows = 0
+        self._init_obs()
+
+    def _init_obs(self) -> None:
+        lbl = {"model": self.name}
+        self._m_active = self._reg.gauge(
+            "stream_sessions_active", "open streaming sessions", labels=lbl)
+        self._m_computed = self._reg.counter(
+            "stream_frames_computed_total",
+            "conv output frames actually computed", labels=lbl)
+        self._m_reused = self._reg.counter(
+            "stream_frames_reused_total",
+            "conv output frames served from ring buffers", labels=lbl)
+        self._m_windows = self._reg.counter(
+            "stream_windows_total", "windows answered with logits",
+            labels=lbl)
+        self._m_evicted = self._reg.counter(
+            "stream_sessions_evicted_total", "LRU session evictions",
+            labels=lbl)
+        self._m_batch = self._reg.histogram(
+            "stream_batch_size",
+            "real sessions advanced per jitted prime/step dispatch",
+            labels=lbl, buckets=(1, 2, 4, 8, 16, 32, 64))
+        self._m_pad = self._reg.counter(
+            "stream_pad_rows_total",
+            "bucket-padding waste rows in batched prime/step calls",
+            labels=lbl)
+        self._m_fpw = self._reg.gauge(
+            "stream_fps_per_watt",
+            "modeled windows per second per watt (calibrated energy model)",
+            labels=lbl)
+        self._m_watts = self._reg.gauge(
+            "stream_watts",
+            "modeled average device watts at the achieved window rate",
+            labels=lbl)
+        self.tracer.name_track(OT.TID_ENGINE, f"stream:{self.name}")
 
     def _to_device(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
@@ -655,17 +716,30 @@ class StreamEngine:
             self._sessions[sid].last_used = self._clock()
             return sid
         while len(self._sessions) >= self.max_sessions:
-            self._sessions.popitem(last=False)
+            old_sid, old = self._sessions.popitem(last=False)
             self._evicted += 1
+            self._m_evicted.inc()
+            self.tracer.async_end(f"stream_session:{self.name}",
+                                  old.span_id, args={"sid": old_sid,
+                                                     "evicted": True})
+            self._m_active.set(len(self._sessions))
+        span_id = next(self._span_ids)
+        self.tracer.async_begin(f"stream_session:{self.name}", span_id,
+                                args={"sid": sid})
         self._sessions[sid] = _Session(
             sid=sid, buffers=None,
             pending=np.zeros((0, self.input_ch), np.float32),
-            last_used=self._clock(), windows=0)
+            last_used=self._clock(), windows=0, span_id=span_id)
+        self._m_active.set(len(self._sessions))
         return sid
 
     def close_session(self, sid: str) -> None:
-        if self._sessions.pop(sid, None) is None:
+        sess = self._sessions.pop(sid, None)
+        if sess is None:
             raise KeyError(f"unknown session {sid!r}")
+        self.tracer.async_end(f"stream_session:{self.name}", sess.span_id,
+                              args={"sid": sid, "evicted": False})
+        self._m_active.set(len(self._sessions))
 
     @property
     def sessions_active(self) -> int:
@@ -749,16 +823,33 @@ class StreamEngine:
     def _note_window(self, sess: _Session,
                      logits_row: np.ndarray) -> StreamResult:
         self._windows += 1
+        self._m_windows.inc()
         r = StreamResult(sid=sess.sid, window=sess.windows,
                          logits=logits_row, streamed=sess.windows > 0)
         sess.windows += 1
         return r
 
-    def _account(self, real: int, b: int, pad: int) -> None:
+    def _account(self, group: Sequence[str], b: int, pad: int,
+                 frames: int, t0: float, t1: float, kind: str) -> None:
+        """Batch counters, metrics and the call's span (`stream_<kind>`
+        for one session, `stream_<kind>_batched` for a group)."""
+        self._m_batch.observe(len(group))
         if b > 1:
             self._batched_calls += 1
-            self._windows_batched += real
-        self._pad_rows += pad
+            self._windows_batched += len(group)
+        if pad:
+            self._pad_rows += pad
+            self._m_pad.inc(pad)
+        if b == 1:
+            self.tracer.complete(
+                f"stream_{kind}", t0, t1, cat="stream", tid=OT.TID_ENGINE,
+                args={"sid": group[0], "frames": frames})
+        else:
+            self.tracer.complete(
+                f"stream_{kind}_batched", t0, t1, cat="stream",
+                tid=OT.TID_ENGINE,
+                args={"sids": list(group), "batch": len(group), "pad": pad,
+                      "frames": frames})
 
     def _prime_sessions(self, group: Sequence[str],
                         pad: int) -> List[StreamResult]:
@@ -788,8 +879,10 @@ class StreamEngine:
             results.append(self._note_window(s, logits[i]))
         self._primes += len(sess)
         self._prime_s += t1 - t0
-        self._frames_computed += self.plan.frames_full * b
-        self._account(len(sess), b, pad)
+        frames = self.plan.frames_full * b
+        self._frames_computed += frames
+        self._m_computed.inc(frames)
+        self._account(group, b, pad, frames, t0, t1, "prime")
         return results
 
     def _step_sessions(self, group: Sequence[str],
@@ -819,10 +912,13 @@ class StreamEngine:
             s.last_used = t1
             results.append(self._note_window(s, logits[i]))
         self._step_s += t1 - t0
-        self._frames_computed += self.plan.frames_step * b
-        self._frames_reused += (self.plan.frames_full
-                                - self.plan.frames_step) * len(sess)
-        self._account(len(sess), b, pad)
+        frames = self.plan.frames_step * b
+        reused = (self.plan.frames_full - self.plan.frames_step) * len(sess)
+        self._frames_computed += frames
+        self._frames_reused += reused
+        self._m_computed.inc(frames)
+        self._m_reused.inc(reused)
+        self._account(group, b, pad, frames, t0, t1, "step")
         return results
 
     def _ready_sids(self) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
@@ -873,10 +969,33 @@ class StreamEngine:
 
     # -- reporting --------------------------------------------------------
 
+    def energy_j_per_window(self) -> float:
+        """Modeled energy of one steady-state streaming step.
+
+        Compute term: the measured average step wall time priced at the
+        device's busy watts (falling back to analytic pJ/MAC over the
+        plan's per-step MACs before any step has run); memory term: the
+        plan's per-step activation traffic at DRAM pJ/byte. The same
+        accounting as `repro_torch.energy.estimate_energy`, specialized to
+        the ring-buffer step geometry."""
+        mem_j = self.plan.bytes_step * EM.PJ_PER_BYTE * 1e-12
+        steps = self._windows - self._primes
+        if steps and self._step_s > 0:
+            return self.power.busy_w * (self._step_s / steps) + mem_j
+        bits = max((op.bits for b in self.qnet.spec.blocks for op in b.ops),
+                   default=8)
+        pj = EM.PJ_PER_MAC.get(bits, EM.PJ_PER_MAC_DEFAULT)
+        return self.plan.macs_step * pj * 1e-12 + mem_j
+
     def stats(self) -> Dict[str, float]:
         steps = self._windows - self._primes
         wps = (steps / self._step_s
                if steps and self._step_s > 0 else 0.0)
+        energy_j = self.energy_j_per_window()
+        watts = self.power.idle_w + energy_j * wps
+        fps_per_watt = wps / watts if watts > 0 else 0.0
+        self._m_fpw.set(fps_per_watt)
+        self._m_watts.set(watts)
         return {
             "sessions_active": float(len(self._sessions)),
             "sessions_evicted": float(self._evicted),
@@ -906,8 +1025,14 @@ class StreamEngine:
             "prime_s": self._prime_s,
             "step_s": self._step_s,
             "fps_streamed": wps,
+            # calibrated energy model: per-step modeled joules, average
+            # modeled draw at the achieved window rate, and the paper's
+            # headline windows-per-second-per-watt
             "bytes_per_window_full": float(self.plan.bytes_full),
             "bytes_per_window_step": float(self.plan.bytes_step),
+            "energy_j_per_window_step": energy_j,
+            "watts": watts,
+            "fps_per_watt": fps_per_watt,
         }
 
 

@@ -2,6 +2,7 @@
 from repro_torch.serve.vision.engine import (
     AdmissionError,
     EngineStats,
+    MultiModelEngine,
     RequestResult,
     VisionEngine,
     VisionRequest,
@@ -13,6 +14,7 @@ __all__ = [
     "AdmissionError",
     "CompiledStage",
     "EngineStats",
+    "MultiModelEngine",
     "PipelinedExecutor",
     "RequestResult",
     "VisionEngine",

@@ -8,6 +8,15 @@ returns at once; when a micro-batch leaves the last stage the tick records
 a CUDA event behind it, and `harvest` waits on that event alone — the work
 already queued for later micro-batches keeps the card busy meanwhile.
 On the CPU everything is synchronous and `harvest` waits for nothing.
+
+Observability (`tracer=` / `metrics=`, see `repro_torch.obs`), as in the
+reference: each stage dispatch becomes a `dispatch:<cu>` span on that CU's
+track (`TID_STAGE0 + i`; the enqueue time, since CUDA work is asynchronous,
+so stage compute shows up as harvest wait at the sync point, which is also
+traced), plus per-stage dispatch-seconds and bytes-moved instruments, a
+tick counter and a harvest-wait histogram. Every extra clock read is
+guarded by `if tracer`: with observability off the executor reads the
+clock exactly where it always did.
 """
 from __future__ import annotations
 
@@ -17,11 +26,24 @@ from typing import Any, Deque, Iterable, Iterator, List, Optional, Tuple
 
 import torch
 
+from repro_torch.obs import metrics as OM
+from repro_torch.obs import trace as OT
 from repro_torch.serve.vision.stages import CompiledStage
 
 
+def _stage_bytes_per_row(stage: CompiledStage) -> int:
+    """Analytic uint8 activation traffic of one batch row through a stage:
+    input read + output write at the stage boundary (the DDR view of the
+    paper's CU invocation; intra-stage intermediates stay on chip)."""
+    sig = stage.spec.signature
+    n_in = (sig.in_hw or 1) * (sig.in_hw or 1) * sig.in_ch
+    n_out = (sig.out_hw or 1) * (sig.out_hw or 1) * sig.out_ch
+    return n_in + n_out
+
+
 class PipelinedExecutor:
-    def __init__(self, stages: List[CompiledStage], clock=None):
+    def __init__(self, stages: List[CompiledStage], clock=None,
+                 tracer: Optional[OT.Tracer] = None, metrics=None):
         if not stages:
             raise ValueError("need at least one stage")
         self.stages = stages
@@ -32,6 +54,33 @@ class PipelinedExecutor:
         self._streaming = False
         # wall time spent blocked on finished outputs (pipeline stall proxy)
         self.harvest_wait_s = 0.0
+        self.tracer = tracer if tracer is not None else OT.NULL
+        # optional tag -> trace-args hook: the engine installs one mapping
+        # its (reqs, x) batch tags to request ids, tying every stage
+        # dispatch span back to the requests riding the micro-batch
+        self.tag_info = None
+        reg = metrics if metrics is not None else OM.NULL_REGISTRY
+        self._m_harvest = reg.histogram(
+            "serve_harvest_wait_seconds",
+            "wall time blocked on a finished stage output (the pipeline's "
+            "only sync point)")
+        self._m_ticks = reg.counter(
+            "serve_pipeline_ticks_total", "scheduler ticks advanced")
+        self._stage_row_bytes = [_stage_bytes_per_row(s) for s in stages]
+        self._m_stage_dispatch = []
+        self._m_stage_bytes = []
+        for i, stage in enumerate(stages):
+            cu = stage.spec.cu
+            lbl = {"cu": cu}
+            self._m_stage_dispatch.append(reg.histogram(
+                "serve_stage_dispatch_seconds",
+                "per-stage dispatch (enqueue) wall time", labels=lbl))
+            self._m_stage_bytes.append(reg.counter(
+                "serve_stage_bytes_moved_total",
+                "analytic uint8 activation bytes in+out of the stage",
+                labels=lbl))
+            if self.tracer:
+                self.tracer.name_track(OT.TID_STAGE0 + i, f"stage:{cu}")
 
     @property
     def depth(self) -> int:
@@ -50,12 +99,27 @@ class PipelinedExecutor:
         the Head slot. Returns the (tag, y) that left the last stage this
         tick, if any, not yet waited on: pass it to `harvest`."""
         finished = None
+        self._m_ticks.inc()
         for i in reversed(range(self.depth)):
             if self._slots[i] is None:
                 continue
             tag, x = self._slots[i]
             self._slots[i] = None
-            y = self.stages[i](x)
+            rows = int(x.shape[0])
+            if self.tracer:
+                t0 = self._clock()
+                y = self.stages[i](x)  # enqueued, returns at once on CUDA
+                t1 = self._clock()
+                args = {"rows": rows}
+                if self.tag_info is not None:
+                    args.update(self.tag_info(tag))
+                self.tracer.complete(
+                    f"dispatch:{self.stages[i].spec.cu}", t0, t1,
+                    cat="stage", tid=OT.TID_STAGE0 + i, args=args)
+                self._m_stage_dispatch[i].observe(t1 - t0)
+            else:
+                y = self.stages[i](x)  # enqueued, returns at once on CUDA
+            self._m_stage_bytes[i].inc(rows * self._stage_row_bytes[i])
             if i + 1 < self.depth:
                 self._slots[i + 1] = (tag, y)
             else:
@@ -86,7 +150,12 @@ class PipelinedExecutor:
         ev = self._done.popleft()
         if ev is not None:
             ev.synchronize()
-        self.harvest_wait_s += self._clock() - t0
+        t1 = self._clock()
+        self.harvest_wait_s += t1 - t0
+        self._m_harvest.observe(t1 - t0)
+        if self.tracer:
+            self.tracer.complete("harvest", t0, t1, cat="pipeline",
+                                 tid=OT.TID_SCHED)
         return finished
 
     # -- streaming loop ------------------------------------------------------
@@ -127,10 +196,23 @@ class PipelinedExecutor:
 
     def warmup(self, example: torch.Tensor) -> None:
         """Run every stage once at `example`'s batch size, outside the
-        invocation counts: builds the kernels and warms the allocator."""
+        invocation counts: builds the kernels and warms the allocator.
+        With tracing on, each stage is waited on before the next — the one
+        place a stage's compute time is observable without breaking the
+        pipelining — and lands on its track as `warmup:<cu>`."""
         x = example
-        for stage in self.stages:
-            x = stage.run(x)
+        for i, stage in enumerate(self.stages):
+            if self.tracer:
+                t0 = self._clock()
+                x = stage.run(x)
+                if x.is_cuda:
+                    torch.cuda.synchronize(x.device)
+                self.tracer.complete(
+                    f"warmup:{stage.spec.cu}", t0, self._clock(),
+                    cat="stage", tid=OT.TID_STAGE0 + i,
+                    args={"rows": int(example.shape[0])})
+            else:
+                x = stage.run(x)
         if x.is_cuda:
             torch.cuda.synchronize(x.device)
 

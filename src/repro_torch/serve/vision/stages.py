@@ -18,6 +18,14 @@ Both flags are "auto" (on when the device is CUDA), "on" or "off". On the
 CPU the kernel wrappers run their plain PyTorch versions, so "on" there
 exercises the same routing with the same bits.
 
+Retrace accounting: the JAX package traces a stage once per novel input
+shape (its `jax.jit` cache) and counts a trace at a batch size outside
+`allowed_batches` (the engine's buckets) as a leak past the batch former.
+Torch does not trace; each stage counts what that cache would: its first
+call at each (shape, dtype) is a `trace`, and one outside
+`allowed_batches` is a `retrace`, warned about (`RuntimeWarning`) and
+reported to `on_retrace`.
+
 `fixed_point=True` serves the integer mantissa/shift requant. The kernels'
 epilogue is float-multiplier only (in the reference's Pallas kernels too),
 so fixed point runs the reference torch ops: "auto" flags resolve to off,
@@ -26,7 +34,8 @@ and "on" with fixed point raises.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple, Union
+import warnings
+from typing import Callable, List, Optional, Tuple, Union
 
 import torch
 
@@ -54,7 +63,9 @@ class StageSpec:
 
 class CompiledStage:
     """One CU stage as a callable on tensors of the prepared net's device.
-    `invocations` counts the micro-batches it ran."""
+    `invocations` counts the micro-batches it ran, `traces` the distinct
+    input shapes it has seen and `retraces` those outside
+    `allowed_batches`."""
 
     def __init__(self, spec: StageSpec, pq: cu.PreparedQNet, *,
                  input_bits: int, fast_path: bool, op_kernels: bool,
@@ -65,10 +76,39 @@ class CompiledStage:
         self._fixed_point = fixed_point
         self._fast_path = fast_path and spec.cu == CC.BODY
         self._op_kernels = op_kernels
-        self.invocations = 0
+        self.invocations = 0  # CU invocations dispatched (micro-batches)
+        self.traces = 0  # novel input shapes (the reference's jit misses)
+        self._shapes: set = set()
+        # the batch sizes the engine may legally present (its buckets); a
+        # first call at any other leading dim is a retrace leak
+        self.allowed_batches: Optional[frozenset] = None
+        self.retraces = 0
+        self.on_retrace: Optional[Callable[["CompiledStage", Tuple[int, ...]],
+                                           None]] = None
+
+    def _note_shape(self, x: torch.Tensor) -> None:
+        """Count a first call at this input shape as the reference's jit
+        would count a trace, and a leak where the batch is not a bucket."""
+        key = (x.shape, x.dtype)
+        if key in self._shapes:
+            return
+        self._shapes.add(key)
+        self.traces += 1
+        if (self.allowed_batches is not None
+                and x.shape[0] not in self.allowed_batches):
+            self.retraces += 1
+            warnings.warn(
+                f"stage {self.spec.cu}: retrace at non-bucketed batch "
+                f"shape {tuple(x.shape)} (buckets "
+                f"{sorted(self.allowed_batches)}) — a caller bypassed the "
+                f"batch former",
+                RuntimeWarning, stacklevel=3)
+            if self.on_retrace is not None:
+                self.on_retrace(self, tuple(x.shape))
 
     def run(self, x: torch.Tensor) -> torch.Tensor:
         """The stage's function, without counting an invocation."""
+        self._note_shape(x)
         spec, pq = self.spec, self.pq
         y = x
         if spec.quantizes_input:

@@ -812,3 +812,134 @@ def test_stream_engine_on_card(dev, case, fixed):
     res = one.push(one.open_session(), SC.frames(case)[0])
     np.testing.assert_array_equal(np.stack([r.logits for r in res]),
                                   want[:c["windows"]])
+
+
+# ---------------------------------------------------------------------------
+# observability, the energy model and multi-model serving on the card
+# ---------------------------------------------------------------------------
+
+
+def _golden(model, bits):
+    base = os.path.join(GOLDEN, f"{model}_act{bits}")
+    return base + ".qnet", np.load(base + ".npz")
+
+
+@pytest.mark.parametrize("model,bits", [("mobilenet_v2", 8),
+                                        ("efficientnet_compact", 4),
+                                        ("efficientnet_compact", 8)])
+def test_obs_on_is_bit_exact_on_card(dev, model, bits):
+    """A traced, metered drain on the card serves the logits of an
+    untraced one and of the JAX package's goldens; the trace validates,
+    every request span is closed, and each stage's dispatch is a span on
+    its own track."""
+    from repro_torch.obs import MetricsRegistry, Tracer, validate_chrome_trace
+
+    path, fix = _golden(model, bits)
+    x = np.concatenate([fix["input"]] * 2)
+    got = {}
+    for obs in (False, True):
+        tracer, reg = (Tracer(), MetricsRegistry()) if obs else (None, None)
+        eng = VisionEngine.from_artifact(path, buckets=(2,), device=dev,
+                                         tracer=tracer, metrics=reg)
+        rids = [eng.submit(img) for img in x]
+        res = eng.run()
+        got[obs] = np.stack([res[r].logits for r in rids])
+    np.testing.assert_array_equal(got[True], got[False])
+    np.testing.assert_array_equal(got[True], np.concatenate([fix["logits"]]
+                                                            * 2))
+    doc = tracer.to_chrome()
+    assert validate_chrome_trace(doc) == []
+    ends = [ev for ev in doc["traceEvents"]
+            if ev["ph"] == "e" and ev["name"] == "request"]
+    assert sorted(ev["id"] for ev in ends) == rids
+    dispatch = {ev["name"]: ev["tid"] for ev in doc["traceEvents"]
+                if ev["ph"] == "X" and ev["name"].startswith("dispatch:")}
+    assert dispatch == {f"dispatch:{st.spec.cu}": 10 + i
+                        for i, st in enumerate(eng.stages)}
+    snap = reg.snapshot()
+    assert snap["counters"]['serve_requests_completed_total{model="default"}'
+                            ] == len(x)
+    st = eng.stats()
+    assert st.device == str(dev) and st.power_source == "constant:cuda"
+    assert st.fps_per_watt > 0 and st.stage_retraces == {
+        s.spec.cu: 0 for s in eng.stages}
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_multimodel_engine_on_card_serves_both_goldens(dev, bits):
+    """`MultiModelEngine` over MobileNetV2 and the compact EfficientNet on
+    the card, one shared tracer: both nets' logits equal the goldens, each
+    micro-batch launches what `ops.served_launches` works out from its
+    plan, and the router dispatched each net's micro-batches."""
+    from repro_torch.core import compiler as CC
+    from repro_torch.obs import Tracer, validate_chrome_trace
+    from repro_torch.serve.vision import MultiModelEngine
+
+    tracer = Tracer()
+    engines, fixes = {}, {}
+    for model in ("mobilenet_v2", "efficientnet_compact"):
+        path, fixes[model] = _golden(model, bits)
+        engines[model] = VisionEngine.from_artifact(
+            path, buckets=(2,), device=dev, tracer=tracer, name=model)
+    mm = MultiModelEngine(engines)
+    handles = {m: [mm.submit(m, img) for img in f["input"]]
+               for m, f in fixes.items()}
+    K.reset_launch_counts()
+    res = mm.run()
+    want = dict.fromkeys(K.launch_counts(), 0)
+    for eng in engines.values():
+        for k, v in K.served_launches(CC.compile_net(eng.pq.spec)).items():
+            want[k] += v
+    assert K.launch_counts() == want
+    for m, hs in handles.items():
+        np.testing.assert_array_equal(
+            np.stack([res[h].logits for h in hs]), fixes[m]["logits"])
+    assert sorted(m for m, _ in mm.dispatch_log) == sorted(engines)
+    assert validate_chrome_trace(tracer.to_chrome()) == []
+
+
+def test_power_capped_fleet_on_card(dev):
+    """The fleet budget on the card: with the measured `cuda` idle draw and
+    the modeled J/image, a budget just above idle defers work; the rolling
+    watts stay under it at every run, no slo=1 request is shed, and every
+    request is accounted for once the windows have passed."""
+    from repro_torch.serve.vision import MultiModelEngine
+
+    t = [0.0]
+
+    def clock():
+        t[0] += 1e-4
+        return t[0]
+
+    engines, fixes = {}, {}
+    for model in ("mobilenet_v2", "efficientnet_compact"):
+        path, fixes[model] = _golden(model, 8)
+        engines[model] = VisionEngine.from_artifact(
+            path, buckets=(2,), device=dev, name=model, shed_slo=0)
+    idle = engines["mobilenet_v2"].energy.power.idle_w
+    per_batch = max(2 * e.energy.j_per_image for e in engines.values())
+    mm = MultiModelEngine(engines, clock=clock,
+                          power_budget_w=idle + 1.5 * per_batch / 0.01,
+                          power_window_s=0.01)
+    slos = {}
+    for i in range(6):
+        for m, f in fixes.items():
+            slos[mm.submit(m, f["input"][i % 2], slo=i % 2)] = i % 2
+    results = {}
+    for _ in range(20):
+        results.update(mm.run())
+        assert mm.governor.watts(t[0]) <= mm.governor.budget_w * (1 + 1e-9)
+        if not any(mm.pending().values()):
+            break
+        t[0] += 0.02
+    assert set(results) == set(slos)
+    assert all(results[h].status == "ok" for h, s in slos.items() if s == 1)
+    stats = mm.stats()
+    assert sum(s.n_deferred for s in stats.values()) > 0
+    assert sum(s.n_ok + s.n_shed + s.n_expired for s in stats.values()) == \
+        len(slos)
+    for h, r in results.items():
+        if r.status == "ok":
+            f = fixes[h[0]]
+            i = [k for k in slos if k[0] == h[0]].index(h)
+            np.testing.assert_array_equal(r.logits, f["logits"][i % 2])

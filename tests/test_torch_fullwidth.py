@@ -1,8 +1,10 @@
-"""Full-width MobileNetV2 (alpha 1.0, 224x224x3, 1000 classes, act8) through
-the PyTorch port, against the JAX package's `cu.run_qnet` logits.
+"""Full-width MobileNetV2 (alpha 1.0, 224x224x3, 1000 classes, act8) and the
+full-size compact EfficientNet (H=128, 1000 classes, act8) through the
+PyTorch port, against the JAX package's `cu.run_qnet` logits.
 
-The fixture `tests/golden_torch/mobilenet_v2_alpha1_224_act8.{qnet,npz}`
-freezes the quantized net and the JAX reference's answers on 8 images:
+The fixtures `tests/golden_torch/mobilenet_v2_alpha1_224_act8.{qnet,npz}`
+and `tests/golden_torch/efficientnet_compact_h128_act8.{qnet,npz}` freeze
+each quantized net and the JAX reference's answers on 8 images:
 
   * `logits` [8, 1000] float32 — `repro.core.cu.run_qnet` on the images,
   * `stage_sha256` [n_stages, 8] — sha256 of each image's uint8 CU-stage
@@ -10,9 +12,11 @@ freezes the quantized net and the JAX reference's answers on 8 images:
     that differs, and `stage_names` [n_stages].
 
 The images are not stored: both sides regenerate them from the seed
-(`images()`). Regenerate the fixture with the JAX package:
+(`images()`, at the net's input size). Regenerate a fixture with the JAX
+package:
 
     PYTHONPATH=src python -m tests.test_torch_fullwidth --regen
+    PYTHONPATH=src python -m tests.test_torch_fullwidth --regen efficientnet_compact
 
 At this size the JAX fused-IRB formula drifts from `run_qnet` (ROADMAP F4),
 so the CPU test below, which runs the port's plain fused-IRB version on all
@@ -32,13 +36,19 @@ BASE = os.path.join(FIXTURE_DIR, "mobilenet_v2_alpha1_224_act8")
 QNET_PATH, NPZ_PATH = BASE + ".qnet", BASE + ".npz"
 BUILD = {"model": "mobilenet_v2", "alpha": 1.0, "input_hw": 224, "bits": 8,
          "num_classes": 1000}
+EFFNET_BASE = os.path.join(FIXTURE_DIR, "efficientnet_compact_h128_act8")
+EFFNET_BUILD = {"model": "efficientnet_compact", "input_hw": 128, "bits": 8,
+                "num_classes": 1000}
+# net -> (fixture path without extension, build record)
+FIXTURES = {"mobilenet_v2": (BASE, BUILD),
+            "efficientnet_compact": (EFFNET_BASE, EFFNET_BUILD)}
 N_IMAGES = 8
 
 
-def images() -> np.ndarray:
-    """The fixture's 8 input images, [8, 224, 224, 3] float32 in [-1, 1]."""
+def images(hw: int = 224) -> np.ndarray:
+    """A fixture's 8 input images, [8, hw, hw, 3] float32 in [-1, 1]."""
     return np.random.default_rng(0).uniform(
-        -1, 1, (N_IMAGES, 224, 224, 3)).astype(np.float32)
+        -1, 1, (N_IMAGES, hw, hw, 3)).astype(np.float32)
 
 
 def stage_digests(act: np.ndarray) -> list:
@@ -47,23 +57,27 @@ def stage_digests(act: np.ndarray) -> list:
     return [hashlib.sha256(row.tobytes()).hexdigest() for row in u8]
 
 
-def regen() -> None:
+def regen(name: str = "mobilenet_v2") -> None:
     """Build, calibrate and quantize the net with the JAX package, freeze it,
     and store the reference's logits and per-stage digests."""
     import jax.numpy as jnp
 
     from repro.core import compiler as CC, cu, qnet as Q
-    from repro.models import mobilenet_v2 as mnv2
+    from repro.models import efficientnet as effn, mobilenet_v2 as mnv2
     from repro.models.layers import make_calibrated_qnet
 
-    net = mnv2.build(alpha=1.0, input_hw=224, bits=8)
+    base, build = FIXTURES[name]
+    kw = {k: v for k, v in build.items() if k != "model"}
+    net = {"mobilenet_v2": mnv2.build,
+           "efficientnet_compact": effn.build_compact}[name](**kw)
     qnet = make_calibrated_qnet(net, bits=8, seed=0)
     os.makedirs(FIXTURE_DIR, exist_ok=True)
-    Q.save_qnet(qnet, QNET_PATH, build=BUILD,
+    qnet_path, npz_path = base + ".qnet", base + ".npz"
+    Q.save_qnet(qnet, qnet_path, build=build,
                 provenance={"derivation": "make_calibrated_qnet", "seed": 0,
                             "n_cal": 2})
-    qnet = Q.load_qnet(QNET_PATH)  # answers come from the frozen artifact
-    x = jnp.asarray(images())
+    qnet = Q.load_qnet(qnet_path)  # answers come from the frozen artifact
+    x = jnp.asarray(images(build["input_hw"]))
     logits = np.asarray(cu.run_qnet(qnet, x), np.float32)
     sigs = CC.compile_net(qnet.spec).stage_signatures()
     s, z = cu.input_qparams(qnet)
@@ -77,11 +91,11 @@ def regen() -> None:
         digests.append(stage_digests(act))
     walked = (np.asarray(y, np.float32) + np.float32(z)) * np.float32(s)
     assert np.array_equal(walked, logits), "stage walk != run_qnet"
-    np.savez_compressed(NPZ_PATH, logits=logits,
+    np.savez_compressed(npz_path, logits=logits,
                         stage_names=np.asarray(names),
                         stage_sha256=np.asarray(digests))
-    size = (os.path.getsize(QNET_PATH) + os.path.getsize(NPZ_PATH)) / 2**20
-    print(f"[fullwidth] {len(names)} stages, {size:.1f} MiB -> {BASE}.*")
+    size = (os.path.getsize(qnet_path) + os.path.getsize(npz_path)) / 2**20
+    print(f"[fullwidth] {len(names)} stages, {size:.1f} MiB -> {base}.*")
 
 
 # ---------------------------------------------------------------------------
@@ -133,11 +147,46 @@ def test_fullwidth_engine_fused_body_equals_reference_logits(fixture, image0):
     np.testing.assert_array_equal(res[rid].logits, fixture["logits"][0])
 
 
+@pytest.fixture(scope="module")
+def effnet_fixture():
+    fix = np.load(EFFNET_BASE + ".npz")
+    return {k: fix[k] for k in fix.files}
+
+
+def test_fullwidth_efficientnet_engine_equals_reference_logits(
+        effnet_fixture):
+    """The full-size compact EfficientNet (H=128, 1000 classes) on the
+    served route on the CPU: every DW op (3x3 and 5x5, stride 1 and 2)
+    through the plain depthwise version, every PW and DENSE op through the
+    plain pointwise version, SE gates as torch ops (no block is fusable).
+    Two of the fixture's images, equal to the JAX `run_qnet` logits bit for
+    bit; the Head's output equals its stored digests too."""
+    from repro_torch.kernels import ops as K
+    from repro_torch.serve.vision import VisionEngine
+
+    x = images(EFFNET_BUILD["input_hw"])[:2]
+    eng = VisionEngine.from_artifact(EFFNET_BASE + ".qnet", device="cpu",
+                                     buckets=(2,), body_fast_path="on",
+                                     op_kernels="on")
+    assert not any(K.fusable_irb(b) for st in eng.stages
+                   for b in st.spec.blocks)
+    rids = [eng.submit(img) for img in x]
+    res = eng.run()
+    np.testing.assert_array_equal(np.stack([res[r].logits for r in rids]),
+                                  effnet_fixture["logits"][:2])
+    head = eng.stages[0].run(torch.from_numpy(x))
+    assert stage_digests(head.numpy()) == list(
+        effnet_fixture["stage_sha256"][0][:2])
+
+
 if __name__ == "__main__":
     import argparse
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--regen", action="store_true",
-                    help="rewrite the fixture with the JAX package")
-    if ap.parse_args().regen:
-        regen()
+    ap.add_argument("--regen", nargs="?", const="mobilenet_v2",
+                    choices=sorted(FIXTURES),
+                    help="rewrite a net's fixture with the JAX package "
+                         "(default: mobilenet_v2)")
+    net = ap.parse_args().regen
+    if net:
+        regen(net)

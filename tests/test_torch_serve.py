@@ -237,3 +237,42 @@ def test_mixed_precision_artifact_served_equals_reference():
     res = eng.run()
     np.testing.assert_array_equal(np.stack([res[r].logits for r in rids]),
                                   want)
+
+
+@pytest.mark.parametrize("case", GOLDEN_2D + [("efficientnet_compact_h128",
+                                               8)],
+                         ids=lambda c: f"{c[0]}_act{c[1]}")
+def test_served_launches_match_the_routed_calls(case, monkeypatch):
+    """`ops.served_launches(plan)`, worked out from the CU plan alone,
+    equals the kernel calls one micro-batch makes on the served route (the
+    wrappers run their plain versions here, so spies count the calls), on
+    every 2-D golden and the full-size compact EfficientNet: 31 pointwise
+    and 10 depthwise calls, no fusable block."""
+    from repro_torch.core import compiler as CC
+
+    if case[0] == "efficientnet_compact_h128":
+        qnet_path = os.path.join(os.path.dirname(__file__), "golden_torch",
+                                 "efficientnet_compact_h128_act8.qnet")
+    else:
+        qnet_path = fixture_paths(*case)[0]
+    qnet = Q.load_qnet(qnet_path)
+    calls = dict.fromkeys(K.launch_counts(), 0)
+
+    def spy(fn):
+        def wrapped(*args, **kwargs):
+            calls[fn.__name__] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    for name in ("pointwise_conv_q", "depthwise_conv_q", "fused_irb_q"):
+        monkeypatch.setattr(K, name, spy(getattr(K, name)))
+    eng = VisionEngine(qnet, buckets=(1,), device="cpu",
+                       body_fast_path="on", op_kernels="on")
+    hw = qnet.spec.input_hw
+    eng.submit(np.zeros((hw, hw, 3), np.float32))
+    eng.run()
+    want = K.served_launches(CC.compile_net(qnet.spec))
+    assert calls == want
+    if case[0] == "efficientnet_compact_h128":
+        assert (want["pointwise_conv_q"], want["depthwise_conv_q"],
+                want["fused_irb_q"]) == (31, 10, 0)

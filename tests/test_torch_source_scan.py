@@ -1,7 +1,8 @@
 """The port stands alone: no file of `src/repro_torch/`, nor
 `chip_smoke.py`, imports JAX or the JAX package, and every entry point
-(the streaming engine and fixed-point inference included) called without
-`device=` on a machine without CUDA raises instead of running on the
+(the streaming engine, fixed-point inference, the multi-model router and
+the energy model's default power curve included) called without `device=`
+(or `backend=`) on a machine without CUDA raises instead of running on the
 CPU."""
 import ast
 import pathlib
@@ -12,8 +13,13 @@ import torch
 
 from repro_torch.convert import lm_from_reference
 from repro_torch.core import cu, qnet as Q
+from repro_torch.energy import default_power_model, estimate_energy
 from repro_torch.serve.stream import StreamEngine, reference_windows
-from repro_torch.serve.vision import VisionEngine, compile_stages
+from repro_torch.serve.vision import (
+    MultiModelEngine,
+    VisionEngine,
+    compile_stages,
+)
 from tests.regen_golden import fixture_paths
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -36,7 +42,10 @@ def test_port_files_found():
     for rel in ("kernels/ops.py", "kernels/quant_matmul.py",
                 "kernels/decode_attention.py", "models/lm/common.py",
                 "configs/llama32_1b.py", "serve/stream.py",
-                "models/dscnn1d.py"):
+                "models/dscnn1d.py", "obs/__init__.py", "obs/__main__.py",
+                "obs/trace.py", "obs/metrics.py", "obs/summary.py",
+                "energy/__init__.py", "energy/power.py", "energy/model.py",
+                "energy/governor.py", "tune/__init__.py", "tune/cache.py"):
         assert ROOT / "src" / "repro_torch" / rel in PORT_FILES
 
 
@@ -53,7 +62,10 @@ def test_no_jax_or_reference_import(path):
                                    "compile_stages", "VisionEngine",
                                    "VisionEngine.from_artifact",
                                    "lm_from_reference", "StreamEngine",
-                                   "reference_windows"])
+                                   "reference_windows",
+                                   "default_power_model()",
+                                   "estimate_energy",
+                                   "MultiModelEngine"])
 def test_entry_points_refuse_to_run_without_cuda(entry, monkeypatch):
     path = fixture_paths("mobilenet_v2", 8)[0]
     qnet = Q.load_qnet(path)
@@ -73,6 +85,10 @@ def test_entry_points_refuse_to_run_without_cuda(entry, monkeypatch):
                 lambda: lm_from_reference({"k": x, "v": x}),
             "StreamEngine": lambda: StreamEngine(kws, 4),
             "reference_windows":
-                lambda: reference_windows(kws, frames, 32, 4)}[entry]
+                lambda: reference_windows(kws, frames, 32, 4),
+            "default_power_model()": lambda: default_power_model(),
+            "estimate_energy": lambda: estimate_energy(qnet),
+            "MultiModelEngine":
+                lambda: MultiModelEngine({"m": VisionEngine(qnet)})}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
