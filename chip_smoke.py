@@ -118,7 +118,32 @@ last line:
      the card's draw at rest and under a dense int8 matmul loop (the
      median of 100 ms samples over 6 s each) beside
      `BACKEND_WATTS["cuda"]`;
- 10. the kernels' JSON line (with `device_ms`, `library_device_ms` and
+ 10. train: the training front end (`repro_torch.train.vision`) on the
+     card. MobileNetV2 at the paper's full width (alpha 1.0, 224x224x3,
+     1000 classes, w8/a8, BN, batch 32, 2 float + 2 QAT steps, an
+     online-quantization round after each QAT step over 2 calibration
+     batches) from seeded random weights: trained straight, then again
+     killed after step 3 into a temporary checkpoint directory and resumed,
+     and its params, optimizer state, observers and losses must equal the
+     straight run's bit for bit. Exported on the card: `verify_export`
+     must prove every route (reference, prepared, stage executors, engine)
+     on 8 held-out images, the proof must launch K2-K4 as two
+     micro-batches, the exported logits must equal the port's
+     `cu.run_qnet` on the CPU for the same artifact bit for bit, and a
+     `VisionEngine` serving the artifact must launch what `[serve]` does
+     (K2 3, K3 1, K4 16 as 5 `single` + 11 `split_e`) with the same
+     logits. The compact EfficientNet at its published size (H=128, 1000
+     classes, w8/a8) the same after 1 float and 1 QAT step (K2 31, K3 10).
+     Prints the float-step and QAT-step ms (median of 6, CUDA events, host
+     included) with images/s, each step's device busy share and heaviest
+     kernels under torch.profiler (one step), peak `max_memory_allocated`,
+     the export ms,
+     beside the card's name and power limit; then the tiny config's
+     (alpha 0.35, 16x16, 4 classes, batch 8) float phase on the CPU, each
+     step's loss computed on the card too from the same params and batch
+     (rtol 1e-4, the CPU tests'). Run
+     alone, after the build, with `python3 chip_smoke.py train`;
+ 11. the kernels' JSON line (with `device_ms`, `library_device_ms` and
      K6's `cold_device_ms` beside the keys the contract names; K2-K4's
      `launches` are the fleet run's, one micro-batch of each net), the card
      line, and
@@ -720,6 +745,270 @@ def profile_stream(eng, rng, mode, rounds: int = 10):
           f"busy {busy:.3f} ms, busy share {busy / wall_ms:.4f}; a round: "
           f"{n_dev / rounds:.0f} device intervals, {n_aten / rounds:.0f} "
           f"top-level aten ops on the host")
+
+
+# [train]: the paper's full-width MobileNetV2 (w8/a8, BN) and the compact
+# EfficientNet at its published size, trained from seeded random weights
+TRAIN_CFGS = {
+    "mobilenet_v2": dict(model="mobilenet_v2", alpha=1.0, input_hw=224,
+                         num_classes=1000, bits=8, act_bits=8, bn=True,
+                         batch=32, float_steps=2, qat_steps=2,
+                         calibrate_every=1, calib_batches=2),
+    "efficientnet_compact": dict(model="efficientnet_compact", input_hw=128,
+                                 num_classes=1000, bits=8, act_bits=8,
+                                 bn=True, batch=32, float_steps=1,
+                                 qat_steps=1, calibrate_every=1,
+                                 calib_batches=2),
+}
+TRAIN_STOP_AT = 3  # the MobileNetV2 run is killed here, then resumed
+TRAIN_REPS = 6  # timed steps a phase (median)
+# the JAX trainer test's config, for the float-phase losses of card and CPU
+TINY_CFG = dict(model="mobilenet_v2", alpha=0.35, input_hw=16, num_classes=4,
+                float_steps=4, qat_steps=0, batch=8)
+TINY_LOSS_RTOL = 1e-4  # tests/test_torch_train_vision.py, float step
+
+
+def tiny_float_losses(dev):
+    """The tiny config's float phase run on the CPU; at each step the loss
+    of the same params and batch is computed on the card too. Each step is
+    held, not the two trajectories: the phase is chaotic (BN over 8 values
+    at 1x1 and Adam's sign-like first step: on the CPU alone a 1e-7
+    relative change of the init moves the 2nd step's loss by over 0.1 %,
+    `tests/test_torch_train_vision.py::test_tiny_float_phase_is_chaotic`)."""
+    from repro_torch.models import layers
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import tree as T
+    from repro_torch.train import vision as V
+
+    cfg = V.VisionTrainConfig(**TINY_CFG)
+    net = V.build_net(cfg)
+    ph = V.phase_schedule(cfg)[0]
+    opt = O.AdamWConfig(lr=ph.lr, warmup_steps=1, total_steps=cfg.float_steps,
+                        weight_decay=cfg.weight_decay)
+    step = V.make_vision_train_step(net, opt, qat=False, bn_batch=True)
+    loss_fn = V.vision_loss(net, qat=False, bn_batch=True)
+    params = layers.init_params(cfg.seed, net, bn=True, device="cpu")
+    state = O.init_state(params)
+    on_card, on_cpu = [], []
+    for i in range(cfg.float_steps):
+        with layers.exact_f32():
+            on_card.append(float(loss_fn(
+                T.tree_map(lambda t: t.to(dev), params),
+                V.train_batch(cfg, i, dev))[0]))
+        params, state, m = step(params, state, V.train_batch(cfg, i, "cpu"))
+        on_cpu.append(float(m["loss"]))
+    return on_card, on_cpu
+
+
+def _state_leaves(result):
+    from repro_torch.train import tree as T
+    from repro_torch.train import vision as V
+    return T.leaves((result.params, result.opt_state,
+                     V._obs_tree(result.observers)))
+
+
+def train_step_ms(cfg, dev):
+    """Median ms (CUDA events, the host included) of a float step (BN on
+    batch statistics) and of a QAT step at the config's size, from the
+    seeded init, each over TRAIN_REPS calls after 3 warm-ups."""
+    from repro_torch.models import layers
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import vision as V
+
+    net = V.build_net(cfg)
+    opt = O.AdamWConfig(lr=cfg.lr, warmup_steps=1, total_steps=4,
+                        weight_decay=cfg.weight_decay)
+    batch = V.train_batch(cfg, 0, dev)
+    params = layers.init_params(cfg.seed, net, bn=True, device=dev)
+    fused = layers.fuse_bn_params(params)
+    out = {}
+    for name, p, qat in (("float", params, False), ("qat", fused, True)):
+        step = V.make_vision_train_step(net, opt, qat=qat, bn_batch=not qat)
+        state = O.init_state(p)
+        out[name] = time_ms(lambda: step(p, state, batch), reps=TRAIN_REPS)
+        out[name + "_profile"] = profile_steps(
+            lambda: step(p, state, batch))
+    return out
+
+
+def profile_steps(fn, n: int = 1):
+    """`n` calls of a train step under torch.profiler (one: the profile's
+    thousands of events take seconds to read back): wall ms a step,
+    device busy ms a step (the union of device intervals), device
+    intervals a step, and the five heaviest kernels; None where the
+    profiler saw no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = [(evt.self_device_time_total / 1e3, evt.count, evt.key)
+           for evt in prof.key_averages()
+           if evt.device_type == DeviceType.CUDA]
+    busy = busy_ms(prof.events())
+    if not dev or busy <= 0:
+        return None
+    return {"wall_ms": wall_ms / n, "busy_ms": busy / n,
+            "intervals": sum(c for _, c, _ in dev) / n,
+            "top": [(round(d / n, 3), c // n, k[:60]) for d, c, k in
+                    sorted(dev, reverse=True)[:5]]}
+
+
+def _sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def export_and_serve(tag, result, dev, card):
+    """Export on the card (every route proven on 8 held-out images), then
+    serve the artifact through `VisionEngine` on the card with the launch
+    counters set to 0 just before and read just after, and hold its logits
+    and the export's against the port's `cu.run_qnet` on the CPU."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core import compiler as CC
+    from repro_torch.core import cu
+    from repro_torch.core.qnet import load_qnet
+    from repro_torch.kernels import ops as K
+    from repro_torch.kernels.fused_irb import fused_irb_q
+    from repro_torch.serve.vision import VisionEngine
+    from repro_torch.train import vision as V
+
+    cfg = result.cfg
+    x = V.calibration_batches(cfg, "cpu")[0][:8].numpy()
+    path = os.path.join(tempfile.mkdtemp(prefix="train_export_"),
+                        f"{tag}.qnet")
+    K.reset_launch_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    qnet, report = V.export(result.params, result.net, cfg, path=path,
+                            observers=result.observers, verify_batch=x,
+                            device=dev)
+    _sync(dev)
+    export_ms = (time.perf_counter() - t0) * 1e3
+    counts = K.launch_counts()
+    per = K.served_launches(CC.compile_net(qnet.spec))
+    print(f"[train] {tag}: export on {report['device']} in "
+          f"{export_ms:.1f} ms ({card}); routes proven bit-exact "
+          f"{report['routes']}; {report['artifact_bytes']} bytes; launches "
+          f"during the proof {counts} (a micro-batch: "
+          f"{ {k: v for k, v in per.items() if v} }, two micro-batches: "
+          f"the stage executors and the engine)")
+    if counts != {k: 2 * v for k, v in per.items()}:
+        raise SystemExit(f"[train] {tag}: the proof launched {counts}")
+    cpu = cu.run_qnet(load_qnet(path), x, device="cpu").numpy()
+    n_diff = int(np.sum(report["logits"] != cpu))
+    print(f"[train] {tag}: exported logits on the card against the port's "
+          f"cu.run_qnet on the CPU: {n_diff} of {cpu.size} differ")
+    if n_diff:
+        raise SystemExit(f"[train] {tag}: exported logits differ")
+    eng = VisionEngine.from_artifact(path, device=dev, buckets=(8,))
+    eng.warmup()
+    K.reset_launch_counts()
+    rids = [eng.submit(img) for img in x]
+    res = eng.run()
+    counts, variants = K.launch_counts(), dict(fused_irb_q.variants)
+    served = np.stack([res[r].logits for r in rids])
+    n_diff = int(np.sum(served != cpu))
+    print(f"[train] {tag}: VisionEngine on the card, 8 requests: launch "
+          f"counts {counts}; fused_irb_q by variant {variants}; {n_diff} "
+          f"of {cpu.size} logits differ from the CPU's")
+    if counts != per or n_diff:
+        raise SystemExit(f"[train] {tag}: served launches {counts} != "
+                         f"{per}, or logits differ")
+    if per["fused_irb_q"] and variants != EXPECTED_IRB_VARIANTS:
+        raise SystemExit(f"[train] {tag}: fused_irb_q variants {variants}")
+    return export_ms
+
+
+def phase_train(card, dev):
+    """The training front end on the card: full-width MobileNetV2 trained
+    straight, and again killed at step TRAIN_STOP_AT and resumed (bitwise
+    equal); both nets exported and proven bit-exact through K2-K4; step
+    times, images/s, peak memory; the tiny config's float-phase losses on
+    the card against the CPU's."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.train import vision as V
+
+    t_phase = time.perf_counter()
+    for tag, kw in TRAIN_CFGS.items():
+        cfg = V.VisionTrainConfig(**kw)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        straight = V.train(cfg, device=dev)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[train] {tag}: {cfg.total_steps} steps of batch "
+              f"{cfg.batch} at {cfg.input_hw}x{cfg.input_hw}, "
+              f"{cfg.num_classes} classes, w{cfg.bits}/a{cfg.act_bits}: "
+              f"losses {[round(v, 4) for v in straight.history['loss']]}; "
+              f"{len(straight.history['calibration'])} online-quant rounds;"
+              f" {wall:.2f} s with the calibration rounds; peak "
+              f"max_memory_allocated {peak / 2**30:.3f} GiB ({card})")
+        if not (straight.done and V.observers_ready(straight.observers)
+                and np.isfinite(straight.history["loss"]).all()):
+            raise SystemExit(f"[train] {tag}: run incomplete or not finite")
+        if tag == "mobilenet_v2":
+            ckpt = tempfile.mkdtemp(prefix="train_ckpt_")
+            part = V.train(cfg, ckpt_dir=ckpt, stop_after=TRAIN_STOP_AT,
+                           device=dev)
+            resumed = V.train(cfg, ckpt_dir=ckpt, resume=True, device=dev)
+            a, b = _state_leaves(straight), _state_leaves(resumed)
+            same = part.step == TRAIN_STOP_AT and len(a) == len(b) and all(
+                x.dtype == y.dtype and torch.equal(x, y)
+                for x, y in zip(a, b))
+            print(f"[train] {tag}: killed at step {part.step}, resumed to "
+                  f"{resumed.step}: {len(a)} leaves (params, optimizer "
+                  f"state, observers) bitwise equal to the straight run: "
+                  f"{same}; losses equal: "
+                  f"{resumed.history['loss'] == straight.history['loss']}")
+            if not same or resumed.history["loss"] != straight.history["loss"]:
+                raise SystemExit(f"[train] {tag}: restart is not bitwise")
+        ms = train_step_ms(cfg, dev)
+        print(f"[train] {tag}: {card}: float step {ms['float']:.3f} ms "
+              f"({cfg.batch / ms['float'] * 1e3:.1f} images/s), QAT step "
+              f"{ms['qat']:.3f} ms ({cfg.batch / ms['qat'] * 1e3:.1f} "
+              f"images/s) (median of {TRAIN_REPS}, CUDA events, host "
+              f"included); peak max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        for kind in ("float", "qat"):
+            prof = ms[kind + "_profile"]
+            if prof is None:
+                print(f"[train] {tag}: {kind} step: torch.profiler saw no "
+                      f"device time: busy share not measured")
+                continue
+            print(f"[train] {tag}: {kind} step under torch.profiler, a step:"
+                  f" wall {prof['wall_ms']:.3f} ms, device busy "
+                  f"{prof['busy_ms']:.3f} ms (share "
+                  f"{prof['busy_ms'] / prof['wall_ms']:.4f}), "
+                  f"{prof['intervals']:.0f} device intervals; heaviest "
+                  f"(ms a step, launches a step, kernel) {prof['top']}")
+        export_and_serve(tag, straight, dev, card)
+    on_card, on_cpu = tiny_float_losses(dev)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(on_card, on_cpu))
+    print(f"[train] tiny config float phase, each step's loss from the "
+          f"CPU run's params and batch: on the card {on_card}, on the CPU "
+          f"{on_cpu}; largest relative difference {rel:.3g} (tolerance "
+          f"{TINY_LOSS_RTOL})")
+    if rel > TINY_LOSS_RTOL:
+        raise SystemExit("[train] tiny config: card and CPU losses differ")
+    print(f"[train] phase: {time.perf_counter() - t_phase:.1f} s")
 
 
 def phase_fixed_point(imgs, card):
@@ -1435,6 +1724,10 @@ def main() -> int:
                                   line):
                 print(f"  {name}: {line.strip()}")
 
+    if sys.argv[1:] == ["train"]:
+        phase_train(card, torch.device("cuda", torch.cuda.current_device()))
+        print("[smoke] the [train] phase alone: no kernels line, no result")
+        return 0
     fix = dict(np.load(FIXTURE + ".npz"))
     imgs = images()
     nets = []
@@ -1448,7 +1741,8 @@ def main() -> int:
     lm_rows, lm_launches = phase_lm(card)  # the LM entry points' counts
     phase_stream(card)
     phase_fixed_point(imgs, card)
-    launches = phase_fleet(card)  # this slice's main path: both nets
+    launches = phase_fleet(card)  # the serving path: both nets
+    phase_train(card, torch.device("cuda", torch.cuda.current_device()))
     rows.update(lm_rows)
     launches.update({name: lm_launches[name] for name in lm_rows})
 

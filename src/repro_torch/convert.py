@@ -1,9 +1,15 @@
-"""Hand parameters from the JAX package to the port.
+"""Hand parameters from the JAX package to the port, and back.
 
 `qnet_from_reference` takes the JAX package's in-memory `QNet` (its spec
 dataclasses, numpy arrays and floats) and rebuilds it with the port's own
 dataclasses, so both sides compute from identical parameters. It reads the
 object by attribute only and imports nothing of the JAX package.
+
+`params_from_reference` carries a float parameter tree (the JAX package's
+`{op: {"w", "b"[, "bn": {...}]}}`, as arrays) onto a device as the port's
+tensors, with the same names and layouts; `params_to_reference` is the way
+back (numpy arrays). `observers_from_reference` rebuilds calibration
+observers (`ActObserver`s) the same way.
 
 `lm_from_reference` carries LM tensors across: a quantized linear (the
 `{"w_q", "scale"}` dict `init_linear` builds, or the `(w_q, scale)` tuple
@@ -18,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import graph as G
+from repro_torch.core.calibrate import ActObserver
 from repro_torch.core.cu import resolve_device
 from repro_torch.core.qnet import QNet, QOp
 
@@ -75,6 +82,34 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)  # a writable copy
 
 
+def params_from_reference(tree, device=None):
+    """A nested dict of arrays (any depth: op -> {"w", "b", "bn" -> {...}})
+    as the same dict of tensors on `device` (CUDA unless named)."""
+    dev = resolve_device(device)
+
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        return _tensor(t, dev)
+
+    return conv(tree)
+
+
+def params_to_reference(tree):
+    """The port's tree of tensors as the same dict of numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: params_to_reference(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy()
+
+
+def observers_from_reference(observers, device=None):
+    """{name: ActObserver} of the JAX package (arrays in `min_val`,
+    `max_val`, a `momentum`) as the port's observers on `device`."""
+    dev = resolve_device(device)
+    return {k: ActObserver(_tensor(o.min_val, dev), _tensor(o.max_val, dev),
+                           o.momentum) for k, o in observers.items()}
+
+
 _LINEAR_KEYS = {"w_q", "scale"}
 _KV_KEYS = {"k", "v", "k_scale", "v_scale"}
 
@@ -100,4 +135,5 @@ def lm_from_reference(src, device=None):
 
 
 __all__ = ["qnet_from_reference", "netspec_from_reference",
-           "lm_from_reference"]
+           "params_from_reference", "params_to_reference",
+           "observers_from_reference", "lm_from_reference"]

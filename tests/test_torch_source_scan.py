@@ -1,9 +1,9 @@
 """The port stands alone: no file of `src/repro_torch/`, nor
 `chip_smoke.py`, imports JAX or the JAX package, and every entry point
-(the streaming engine, fixed-point inference, the multi-model router and
-the energy model's default power curve included) called without `device=`
-(or `backend=`) on a machine without CUDA raises instead of running on the
-CPU."""
+(the streaming engine, fixed-point inference, the multi-model router, the
+energy model's default power curve, the vision trainer, its export and its
+CLI included) called without `device=` (or `backend=`) on a machine
+without CUDA raises instead of running on the CPU."""
 import ast
 import pathlib
 
@@ -14,12 +14,15 @@ import torch
 from repro_torch.convert import lm_from_reference
 from repro_torch.core import cu, qnet as Q
 from repro_torch.energy import default_power_model, estimate_energy
+from repro_torch.launch import train_vision as train_cli
+from repro_torch.models import layers
 from repro_torch.serve.stream import StreamEngine, reference_windows
 from repro_torch.serve.vision import (
     MultiModelEngine,
     VisionEngine,
     compile_stages,
 )
+from repro_torch.train import vision as V
 from tests.regen_golden import fixture_paths
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -45,7 +48,12 @@ def test_port_files_found():
                 "models/dscnn1d.py", "obs/__init__.py", "obs/__main__.py",
                 "obs/trace.py", "obs/metrics.py", "obs/summary.py",
                 "energy/__init__.py", "energy/power.py", "energy/model.py",
-                "energy/governor.py", "tune/__init__.py", "tune/cache.py"):
+                "energy/governor.py", "tune/__init__.py", "tune/cache.py",
+                "core/quant.py", "core/calibrate.py", "core/bn_fuse.py",
+                "models/layers.py", "data/pipeline.py", "train/tree.py",
+                "train/optimizer.py", "train/train_loop.py",
+                "train/checkpoint.py", "train/vision.py",
+                "launch/train_vision.py"):
         assert ROOT / "src" / "repro_torch" / rel in PORT_FILES
 
 
@@ -65,13 +73,18 @@ def test_no_jax_or_reference_import(path):
                                    "reference_windows",
                                    "default_power_model()",
                                    "estimate_energy",
-                                   "MultiModelEngine"])
+                                   "MultiModelEngine", "train",
+                                   "train_and_export", "export",
+                                   "verify_export", "make_calibrated_qnet",
+                                   "train_vision CLI",
+                                   "train_vision --check-artifact"])
 def test_entry_points_refuse_to_run_without_cuda(entry, monkeypatch):
     path = fixture_paths("mobilenet_v2", 8)[0]
     qnet = Q.load_qnet(path)
     kws = Q.load_qnet(fixture_paths("dscnn_kws", 8)[0])
     x = np.zeros((1, 32, 32, 3), np.float32)
     frames = np.zeros((32, 6), np.float32)
+    cfg = V.VisionTrainConfig(float_steps=1, qat_steps=1, batch=2)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     call = {"prepare_qnet": lambda: cu.prepare_qnet(qnet),
             "run_qnet": lambda: cu.run_qnet(qnet, x),
@@ -89,6 +102,15 @@ def test_entry_points_refuse_to_run_without_cuda(entry, monkeypatch):
             "default_power_model()": lambda: default_power_model(),
             "estimate_energy": lambda: estimate_energy(qnet),
             "MultiModelEngine":
-                lambda: MultiModelEngine({"m": VisionEngine(qnet)})}[entry]
+                lambda: MultiModelEngine({"m": VisionEngine(qnet)}),
+            "train": lambda: V.train(cfg),
+            "train_and_export": lambda: V.train_and_export(cfg),
+            "export": lambda: V.export({}, V.build_net(cfg), cfg),
+            "verify_export": lambda: V.verify_export(qnet, x),
+            "make_calibrated_qnet":
+                lambda: layers.make_calibrated_qnet(V.build_net(cfg)),
+            "train_vision CLI": lambda: train_cli.main(["--smoke"]),
+            "train_vision --check-artifact":
+                lambda: train_cli.main(["--check-artifact", path])}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
