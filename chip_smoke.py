@@ -762,42 +762,48 @@ TRAIN_CFGS = {
 }
 TRAIN_STOP_AT = 3  # the MobileNetV2 run is killed here, then resumed
 TRAIN_REPS = 6  # timed steps a phase (median)
-# the JAX trainer test's config, for the float-phase losses of card and CPU
+# the JAX trainer test's config, held step by step on the card against the
+# CPU (repro_torch.train.parity)
 TINY_CFG = dict(model="mobilenet_v2", alpha=0.35, input_hw=16, num_classes=4,
-                float_steps=4, qat_steps=0, batch=8)
-TINY_LOSS_RTOL = 1e-4  # tests/test_torch_train_vision.py, float step
+                float_steps=4, qat_steps=4, batch=8, anneal_from=8,
+                calibrate_every=2)
 
 
-def tiny_float_losses(dev):
-    """The tiny config's float phase run on the CPU; at each step the loss
-    of the same params and batch is computed on the card too. Each step is
-    held, not the two trajectories: the phase is chaotic (BN over 8 values
-    at 1x1 and Adam's sign-like first step: on the CPU alone a 1e-7
-    relative change of the init moves the 2nd step's loss by over 0.1 %,
-    `tests/test_torch_train_vision.py::test_tiny_float_phase_is_chaotic`)."""
-    from repro_torch.models import layers
-    from repro_torch.train import optimizer as O
-    from repro_torch.train import tree as T
+def tiny_step_parity(dev):
+    """The tiny config's schedule walked on the CPU; every step, QAT
+    fake-quant forward and calibration round also run on the card from
+    the CPU's state and held against it (`parity.verify_train_steps`,
+    the CPU tests' tolerances against the reference). Fails the phase on
+    any miss."""
+    from repro_torch.train import parity as P
     from repro_torch.train import vision as V
 
-    cfg = V.VisionTrainConfig(**TINY_CFG)
-    net = V.build_net(cfg)
-    ph = V.phase_schedule(cfg)[0]
-    opt = O.AdamWConfig(lr=ph.lr, warmup_steps=1, total_steps=cfg.float_steps,
-                        weight_decay=cfg.weight_decay)
-    step = V.make_vision_train_step(net, opt, qat=False, bn_batch=True)
-    loss_fn = V.vision_loss(net, qat=False, bn_batch=True)
-    params = layers.init_params(cfg.seed, net, bn=True, device="cpu")
-    state = O.init_state(params)
-    on_card, on_cpu = [], []
-    for i in range(cfg.float_steps):
-        with layers.exact_f32():
-            on_card.append(float(loss_fn(
-                T.tree_map(lambda t: t.to(dev), params),
-                V.train_batch(cfg, i, dev))[0]))
-        params, state, m = step(params, state, V.train_batch(cfg, i, "cpu"))
-        on_cpu.append(float(m["loss"]))
-    return on_card, on_cpu
+    t0 = time.perf_counter()
+    rep = P.verify_train_steps(V.VisionTrainConfig(**TINY_CFG), device=dev)
+    for e in rep["steps"]:
+        fq = (f"; fake-quant outputs {e['fq_flipped']} of "
+              f"{e['fq_elements']} a step apart (worst "
+              f"{e['fq_steps']:.3g} steps)" if "fq_elements" in e else "")
+        print(f"[train] tiny step {e['step']} ({e['phase']}) card against "
+              f"CPU from the CPU's state: loss {e['loss_dev']!r} against "
+              f"{e['loss_cpu']!r} (rel {e['loss_rel']:.3g}); gradients "
+              f"{e['grad_l2']:.3g} apart in rel L2, worst element "
+              f"{e['grad_elem']:.3g} of the largest; updated params worst "
+              f"{e['param_max']:.3g} apart (lr {e['lr']:.3g}), "
+              f"{e['param_sure']:.3g} where the gradient is sure; BN stats "
+              f"at {e['bn']:.3g} of their tolerance; the card's AdamW on "
+              f"the CPU's gradients: params at {e['opt_param']:.3g} of "
+              f"their tolerance, moments {e['opt_moment']:.3g} apart "
+              f"relative to their magnitude{fq}")
+    for r in rep["rounds"]:
+        print(f"[train] tiny online-quant round after step {r['step']}: "
+              f"observers {r['obs']:.3g} apart relative to their range")
+    print(f"[train] tiny config: {len(rep['steps'])} steps and "
+          f"{len(rep['rounds'])} rounds held against the CPU in "
+          f"{time.perf_counter() - t0:.1f} s; failures {rep['failures']}")
+    if rep["failures"]:
+        raise SystemExit("[train] tiny config: the card's steps differ from "
+                         "the CPU's")
 
 
 def _state_leaves(result):
@@ -835,8 +841,9 @@ def profile_steps(fn, n: int = 1):
     """`n` calls of a train step under torch.profiler (one: the profile's
     thousands of events take seconds to read back): wall ms a step,
     device busy ms a step (the union of device intervals), device
-    intervals a step, and the five heaviest kernels; None where the
-    profiler saw no device time."""
+    intervals a step, those intervals by kernel family (ms and launches a
+    step), and the five heaviest kernels; None where the profiler saw no
+    device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
@@ -856,8 +863,16 @@ def profile_steps(fn, n: int = 1):
     busy = busy_ms(prof.events())
     if not dev or busy <= 0:
         return None
+    families = {}
+    for d, c, k in dev:
+        fam = next((f for f in ("elementwise", "reduce", "conv", "gemm")
+                    if f in k.lower()), "other")
+        ms, cnt = families.get(fam, (0.0, 0))
+        families[fam] = (ms + d / n, cnt + c // n)
     return {"wall_ms": wall_ms / n, "busy_ms": busy / n,
             "intervals": sum(c for _, c, _ in dev) / n,
+            "families": {f: (round(ms, 3), cnt)
+                         for f, (ms, cnt) in sorted(families.items())},
             "top": [(round(d / n, 3), c // n, k[:60]) for d, c, k in
                     sorted(dev, reverse=True)[:5]]}
 
@@ -887,57 +902,59 @@ def export_and_serve(tag, result, dev, card):
 
     cfg = result.cfg
     x = V.calibration_batches(cfg, "cpu")[0][:8].numpy()
-    path = os.path.join(tempfile.mkdtemp(prefix="train_export_"),
-                        f"{tag}.qnet")
-    K.reset_launch_counts()
-    _sync(dev)
-    t0 = time.perf_counter()
-    qnet, report = V.export(result.params, result.net, cfg, path=path,
-                            observers=result.observers, verify_batch=x,
-                            device=dev)
-    _sync(dev)
-    export_ms = (time.perf_counter() - t0) * 1e3
-    counts = K.launch_counts()
-    per = K.served_launches(CC.compile_net(qnet.spec))
-    print(f"[train] {tag}: export on {report['device']} in "
-          f"{export_ms:.1f} ms ({card}); routes proven bit-exact "
-          f"{report['routes']}; {report['artifact_bytes']} bytes; launches "
-          f"during the proof {counts} (a micro-batch: "
-          f"{ {k: v for k, v in per.items() if v} }, two micro-batches: "
-          f"the stage executors and the engine)")
-    if counts != {k: 2 * v for k, v in per.items()}:
-        raise SystemExit(f"[train] {tag}: the proof launched {counts}")
-    cpu = cu.run_qnet(load_qnet(path), x, device="cpu").numpy()
-    n_diff = int(np.sum(report["logits"] != cpu))
-    print(f"[train] {tag}: exported logits on the card against the port's "
-          f"cu.run_qnet on the CPU: {n_diff} of {cpu.size} differ")
-    if n_diff:
-        raise SystemExit(f"[train] {tag}: exported logits differ")
-    eng = VisionEngine.from_artifact(path, device=dev, buckets=(8,))
-    eng.warmup()
-    K.reset_launch_counts()
-    rids = [eng.submit(img) for img in x]
-    res = eng.run()
-    counts, variants = K.launch_counts(), dict(fused_irb_q.variants)
-    served = np.stack([res[r].logits for r in rids])
-    n_diff = int(np.sum(served != cpu))
-    print(f"[train] {tag}: VisionEngine on the card, 8 requests: launch "
-          f"counts {counts}; fused_irb_q by variant {variants}; {n_diff} "
-          f"of {cpu.size} logits differ from the CPU's")
-    if counts != per or n_diff:
-        raise SystemExit(f"[train] {tag}: served launches {counts} != "
-                         f"{per}, or logits differ")
-    if per["fused_irb_q"] and variants != EXPECTED_IRB_VARIANTS:
-        raise SystemExit(f"[train] {tag}: fused_irb_q variants {variants}")
-    return export_ms
+    with tempfile.TemporaryDirectory(prefix="train_export_") as tmp:
+        path = os.path.join(tmp, f"{tag}.qnet")
+        K.reset_launch_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        qnet, report = V.export(result.params, result.net, cfg, path=path,
+                                observers=result.observers, verify_batch=x,
+                                device=dev)
+        _sync(dev)
+        export_ms = (time.perf_counter() - t0) * 1e3
+        counts = K.launch_counts()
+        per = K.served_launches(CC.compile_net(qnet.spec))
+        print(f"[train] {tag}: export on {report['device']} in "
+              f"{export_ms:.1f} ms ({card}); routes proven bit-exact "
+              f"{report['routes']}; {report['artifact_bytes']} bytes; "
+              f"launches during the proof {counts} (a micro-batch: "
+              f"{ {k: v for k, v in per.items() if v} }, two micro-batches: "
+              f"the stage executors and the engine)")
+        if counts != {k: 2 * v for k, v in per.items()}:
+            raise SystemExit(f"[train] {tag}: the proof launched {counts}")
+        cpu = cu.run_qnet(load_qnet(path), x, device="cpu").numpy()
+        n_diff = int(np.sum(report["logits"] != cpu))
+        print(f"[train] {tag}: exported logits on the card against the "
+              f"port's cu.run_qnet on the CPU: {n_diff} of {cpu.size} "
+              f"differ")
+        if n_diff:
+            raise SystemExit(f"[train] {tag}: exported logits differ")
+        eng = VisionEngine.from_artifact(path, device=dev, buckets=(8,))
+        eng.warmup()
+        K.reset_launch_counts()
+        rids = [eng.submit(img) for img in x]
+        res = eng.run()
+        counts, variants = K.launch_counts(), dict(fused_irb_q.variants)
+        served = np.stack([res[r].logits for r in rids])
+        n_diff = int(np.sum(served != cpu))
+        print(f"[train] {tag}: VisionEngine on the card, 8 requests: launch "
+              f"counts {counts}; fused_irb_q by variant {variants}; {n_diff} "
+              f"of {cpu.size} logits differ from the CPU's")
+        if counts != per or n_diff:
+            raise SystemExit(f"[train] {tag}: served launches {counts} != "
+                             f"{per}, or logits differ")
+        if per["fused_irb_q"] and variants != EXPECTED_IRB_VARIANTS:
+            raise SystemExit(f"[train] {tag}: fused_irb_q variants "
+                             f"{variants}")
+        return export_ms
 
 
 def phase_train(card, dev):
     """The training front end on the card: full-width MobileNetV2 trained
     straight, and again killed at step TRAIN_STOP_AT and resumed (bitwise
     equal); both nets exported and proven bit-exact through K2-K4; step
-    times, images/s, peak memory; the tiny config's float-phase losses on
-    the card against the CPU's."""
+    times, images/s, peak memory, the profiled device busy share; every
+    step of the tiny config held on the card against the CPU's."""
     import tempfile
 
     import numpy as np
@@ -965,10 +982,11 @@ def phase_train(card, dev):
                 and np.isfinite(straight.history["loss"]).all()):
             raise SystemExit(f"[train] {tag}: run incomplete or not finite")
         if tag == "mobilenet_v2":
-            ckpt = tempfile.mkdtemp(prefix="train_ckpt_")
-            part = V.train(cfg, ckpt_dir=ckpt, stop_after=TRAIN_STOP_AT,
-                           device=dev)
-            resumed = V.train(cfg, ckpt_dir=ckpt, resume=True, device=dev)
+            with tempfile.TemporaryDirectory(prefix="train_ckpt_") as ckpt:
+                part = V.train(cfg, ckpt_dir=ckpt, stop_after=TRAIN_STOP_AT,
+                               device=dev)
+                resumed = V.train(cfg, ckpt_dir=ckpt, resume=True,
+                                  device=dev)
             a, b = _state_leaves(straight), _state_leaves(resumed)
             same = part.step == TRAIN_STOP_AT and len(a) == len(b) and all(
                 x.dtype == y.dtype and torch.equal(x, y)
@@ -997,17 +1015,11 @@ def phase_train(card, dev):
                   f" wall {prof['wall_ms']:.3f} ms, device busy "
                   f"{prof['busy_ms']:.3f} ms (share "
                   f"{prof['busy_ms'] / prof['wall_ms']:.4f}), "
-                  f"{prof['intervals']:.0f} device intervals; heaviest "
+                  f"{prof['intervals']:.0f} device intervals; by kernel "
+                  f"family (ms, launches a step) {prof['families']}; heaviest "
                   f"(ms a step, launches a step, kernel) {prof['top']}")
         export_and_serve(tag, straight, dev, card)
-    on_card, on_cpu = tiny_float_losses(dev)
-    rel = max(abs(a - b) / abs(b) for a, b in zip(on_card, on_cpu))
-    print(f"[train] tiny config float phase, each step's loss from the "
-          f"CPU run's params and batch: on the card {on_card}, on the CPU "
-          f"{on_cpu}; largest relative difference {rel:.3g} (tolerance "
-          f"{TINY_LOSS_RTOL})")
-    if rel > TINY_LOSS_RTOL:
-        raise SystemExit("[train] tiny config: card and CPU losses differ")
+    tiny_step_parity(dev)
     print(f"[train] phase: {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -1724,10 +1736,6 @@ def main() -> int:
                                   line):
                 print(f"  {name}: {line.strip()}")
 
-    if sys.argv[1:] == ["train"]:
-        phase_train(card, torch.device("cuda", torch.cuda.current_device()))
-        print("[smoke] the [train] phase alone: no kernels line, no result")
-        return 0
     fix = dict(np.load(FIXTURE + ".npz"))
     imgs = images()
     nets = []

@@ -34,14 +34,13 @@ class QuantConfig:
     # axis over which separate (scale, zp) pairs are kept; None = per tensor.
     # For conv weights [K, K, N, M] the paper's per-output-channel mode is -1.
     channel_axis: Optional[int] = None
-    # narrow-range symmetric uses [-(2^(BW-1) - 1), 2^(BW-1) - 1], keeping 0
-    # exact
-    narrow_range: bool = True
 
     @property
     def qmin(self) -> int:
+        # symmetric is narrow range, [-(2^(BW-1) - 1), 2^(BW-1) - 1], keeping
+        # 0 exact (the reference's default; the port has no wide range)
         if self.symmetric:
-            return -(2 ** (self.bits - 1)) + (1 if self.narrow_range else 0)
+            return -(2 ** (self.bits - 1)) + 1
         return 0
 
     @property

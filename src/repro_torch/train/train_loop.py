@@ -1,7 +1,7 @@
 """Train-step builder: microbatched gradients + AdamW.
 
 Counterpart of `repro/train/train_loop.py` for a caller-supplied loss (the
-vision trainer's). `make_train_step(None, opt_cfg, grad_accum=, loss_fn=,
+vision trainer's). `make_train_step(opt_cfg, loss_fn=, grad_accum=,
 has_aux=)` returns
 
     train_step(params, opt_state, batch) -> (params, opt_state, metrics)
@@ -13,12 +13,12 @@ batch moments) are averaged the same way. The step runs inside
 `layers.exact_f32()`: float32 without TF32 and deterministic cuDNN, so a
 restart from a checkpoint repeats the straight run bit for bit on the card.
 
-Not ported yet: the LM loss (`cfg`, ROADMAP queue 1 item 12) and gradient
-compression (`compress=`, item 11).
+Not ported yet: the LM loss (the reference's `cfg`, ROADMAP queue 1 item
+12) and gradient compression (`compress=`, item 11).
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable
 
 import torch
 
@@ -58,30 +58,25 @@ def value_and_grad(loss_fn: Callable, params, batch, has_aux: bool = False):
 
 
 def make_train_step(
-    cfg,
     opt_cfg: O.AdamWConfig,
+    *,
+    loss_fn: Callable,
     grad_accum: int = 1,
-    loss_fn: Optional[Callable] = None,
-    accum_dtype=F32,
     has_aux: bool = False,
 ):
     """`loss_fn(params, batch) -> loss` (or `(loss, aux)` with `has_aux`);
     the aux tree is microbatch-averaged into metrics['aux']."""
-    if cfg is not None or loss_fn is None:
-        raise NotImplementedError(
-            "the port's train step takes an explicit loss_fn; the LM loss "
-            "(cfg=) is not ported yet")
 
     def grads_of(params, batch):
         if grad_accum == 1:
             return value_and_grad(loss_fn, params, batch, has_aux)
-        acc = T.tree_map(lambda p: torch.zeros(p.shape, dtype=accum_dtype,
+        acc = T.tree_map(lambda p: torch.zeros(p.shape, dtype=F32,
                                                device=p.device), params)
         loss_sum = torch.zeros((), dtype=F32)
         aux_sum = None
         for mb in _split_microbatches(batch, grad_accum):
             loss, aux, grads = value_and_grad(loss_fn, params, mb, has_aux)
-            acc = T.tree_map(lambda a, g: a + g.to(accum_dtype), acc, grads)
+            acc = T.tree_map(lambda a, g: a + g.to(F32), acc, grads)
             loss_sum = loss_sum.to(loss.device) + loss
             if has_aux:
                 if aux_sum is None:

@@ -264,8 +264,8 @@ def make_vision_train_step(
     statistics and folds the microbatch-averaged moments into the running
     stats by EMA after the optimizer update."""
     loss_fn = vision_loss(net, qat=qat, bn_batch=bn_batch)
-    base = make_train_step(None, opt_cfg, grad_accum=grad_accum,
-                           loss_fn=loss_fn, has_aux=bn_batch)
+    base = make_train_step(opt_cfg, loss_fn=loss_fn, grad_accum=grad_accum,
+                           has_aux=bn_batch)
     if not bn_batch:
         return base
 
@@ -405,6 +405,35 @@ def _has_bn(params) -> bool:
     return any("bn" in p for p in params.values())
 
 
+def phase_opt_cfg(cfg: VisionTrainConfig, ph: Phase) -> O.AdamWConfig:
+    """Phase `ph`'s optimizer: its own lr schedule over its steps."""
+    n = ph.stop - ph.start
+    return O.AdamWConfig(
+        lr=ph.lr, warmup_steps=min(cfg.warmup_steps, max(n // 5, 1)),
+        total_steps=n, weight_decay=cfg.weight_decay)
+
+
+def phase_step(cfg: VisionTrainConfig, ph: Phase, params
+               ) -> Tuple[G.NetSpec, Callable, Callable]:
+    """(net, loss_fn, step) of phase `ph` for the tree `params` holds at
+    the phase's entry: the net at the phase's activation BW, the loss the
+    step differentiates, and the step over `phase_opt_cfg`."""
+    net = build_net(cfg, act_bits=ph.act_bits)
+    bn_batch = (not ph.qat) and cfg.bn and _has_bn(params)
+    step = make_vision_train_step(
+        net, phase_opt_cfg(cfg, ph), qat=ph.qat, grad_accum=cfg.grad_accum,
+        bn_batch=bn_batch, bn_momentum=cfg.bn_momentum)
+    return net, vision_loss(net, qat=ph.qat, bn_batch=bn_batch), step
+
+
+def calibration_due(cfg: VisionTrainConfig, ph: Phase, completed: int
+                    ) -> bool:
+    """Whether an online-quantization round follows the step that brought
+    the run to `completed` global steps."""
+    return bool(ph.qat and cfg.calibrate_every
+                and (completed - ph.start) % cfg.calibrate_every == 0)
+
+
 def _ckpt_extra(ckpt_dir: str, step: int) -> Dict[str, Any]:
     path = os.path.join(ckpt_dir, f"step_{step:08d}", "manifest.json")
     with open(path) as f:
@@ -521,18 +550,10 @@ def train(
             # deployed weights; the tree changes shape here
             params = layers.fuse_bn_params(params)
             say(f"[train-vision] fused BN into weights at step {completed}")
-        net_ph = build_net(cfg, act_bits=ph.act_bits)
-        n_ph = ph.stop - ph.start
-        opt_cfg = O.AdamWConfig(
-            lr=ph.lr, warmup_steps=min(cfg.warmup_steps, max(n_ph // 5, 1)),
-            total_steps=n_ph, weight_decay=cfg.weight_decay)
+        net_ph, _, step_fn = phase_step(cfg, ph, params)
         if opt_state is None or completed == ph.start:
             # a fresh optimizer per phase (its own schedule)
             opt_state = O.init_state(params)
-        step_fn = make_vision_train_step(
-            net_ph, opt_cfg, qat=ph.qat, grad_accum=cfg.grad_accum,
-            bn_batch=(not ph.qat) and cfg.bn and _has_bn(params),
-            bn_momentum=cfg.bn_momentum)
         if not any(e["name"] == ph.name for e in history["phases"]):
             history["phases"].append(
                 {"name": ph.name, "start": ph.start, "stop": ph.stop,
@@ -550,8 +571,7 @@ def train(
             completed = gs + 1
             m_loss.set(loss)
             m_steps.inc()
-            if ph.qat and cfg.calibrate_every and (
-                    (completed - ph.start) % cfg.calibrate_every == 0):
+            if calibration_due(cfg, ph, completed):
                 with tracer.span("calibration_round", cat="train",
                                  tid=OT.TID_TRAIN,
                                  args={"step": completed,
@@ -774,6 +794,9 @@ __all__ = [
     "init_observers",
     "observers_ready",
     "run_calibration",
+    "phase_opt_cfg",
+    "phase_step",
+    "calibration_due",
     "train",
     "stage_vectors",
     "verify_export",

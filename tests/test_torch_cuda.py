@@ -963,34 +963,21 @@ def _train_state(result):
                      V._obs_tree(result.observers)))
 
 
-def test_train_float_phase_on_card_matches_cpu(dev):
-    """The float phase (BN on batch statistics) run on the CPU; each step's
-    loss computed on the card from the same params and batch, within rtol
-    1e-4 (the CPU tests' bound for a float step against the reference).
-    The two trajectories are not compared: the phase is chaotic at this
-    size (BN over 8 values at 1x1 and Adam's sign-like first step turn a
-    1e-7 change of the init into over 0.1 % of the 2nd step's loss:
-    `tests/test_torch_train_vision.py::test_tiny_float_phase_is_chaotic`).
-    The card's own run is finite."""
-    from repro_torch.models import layers
-    from repro_torch.train import optimizer as O
-    from repro_torch.train import tree as T
+def test_train_steps_on_card_match_cpu(dev):
+    """Every step of the config's schedule (float with BN batch stats,
+    BN fusion, QAT at 8 then 4 activation bits) run on the card from the
+    CPU run's params, optimizer state and batch: loss, gradients, updated
+    params, BN running stats, fake-quantized activations and each online
+    quantization round's observers within `repro_torch.train.parity`'s
+    tolerances (the CPU tests' against the reference). The card's own run
+    is finite."""
+    from repro_torch.train import parity as P
     from repro_torch.train import vision as V
 
     cfg = V.VisionTrainConfig(**TRAIN_CFG)
-    net = V.build_net(cfg)
-    opt = O.AdamWConfig(lr=cfg.lr, warmup_steps=1,
-                        total_steps=cfg.float_steps, weight_decay=0.0)
-    step = V.make_vision_train_step(net, opt, qat=False, bn_batch=True)
-    loss_fn = V.vision_loss(net, qat=False, bn_batch=True)
-    params = layers.init_params(cfg.seed, net, bn=True, device="cpu")
-    state = O.init_state(params)
-    for i in range(cfg.float_steps):
-        with layers.exact_f32():
-            card = float(loss_fn(T.tree_map(lambda t: t.to(dev), params),
-                                 V.train_batch(cfg, i, dev))[0])
-        params, state, m = step(params, state, V.train_batch(cfg, i, "cpu"))
-        np.testing.assert_allclose(card, float(m["loss"]), rtol=1e-4)
+    rep = P.verify_train_steps(cfg, device=dev)
+    assert rep["failures"] == [], rep["failures"]
+    assert len(rep["steps"]) == cfg.total_steps and len(rep["rounds"]) == 2
     assert np.isfinite(V.train(cfg, device=dev).history["loss"]).all()
 
 

@@ -53,7 +53,7 @@ def test_port_files_found():
                 "models/layers.py", "data/pipeline.py", "train/tree.py",
                 "train/optimizer.py", "train/train_loop.py",
                 "train/checkpoint.py", "train/vision.py",
-                "launch/train_vision.py"):
+                "train/parity.py", "launch/train_vision.py"):
         assert ROOT / "src" / "repro_torch" / rel in PORT_FILES
 
 

@@ -62,6 +62,7 @@ from repro_torch.launch import train_vision as CLI
 from repro_torch.models import layers as PL
 from repro_torch.obs import MetricsRegistry, Tracer
 from repro_torch.train import optimizer as PO
+from repro_torch.train import parity as PP
 from repro_torch.train import train_loop as PTL
 from repro_torch.train import tree as PT
 from repro_torch.train import vision as PV
@@ -405,16 +406,14 @@ def test_microbatches_split_as_the_reference():
     loss_fn = PV.vision_loss(pnet, qat=False, bn_batch=True)
     parts = [PTL.value_and_grad(loss_fn, params, mb, has_aux=True)
              for mb in mine]
-    step = PTL.make_train_step(None, PO.AdamWConfig(), grad_accum=2,
-                               loss_fn=loss_fn, has_aux=True)
+    step = PTL.make_train_step(PO.AdamWConfig(), loss_fn=loss_fn,
+                               grad_accum=2, has_aux=True)
     _, _, metrics = step(params, PO.init_state(params), pb)
     assert float(metrics["loss"]) == float((parts[0][0] + parts[1][0]) * 0.5)
     for k, mom in metrics["aux"].items():
         for s in ("mean", "var"):
             want = (parts[0][1][k][s] + parts[1][1][k][s]) * 0.5
             assert torch.equal(mom[s], want), (k, s)
-    with pytest.raises(NotImplementedError):
-        PTL.make_train_step(object(), PO.AdamWConfig())
 
 
 # ---------------------------------------------------------------------------
@@ -525,11 +524,11 @@ def test_cli_smoke_export_and_check(tmp_path, capsys):
 
 def test_tiny_float_phase_is_chaotic():
     """Why the card is held against the CPU step by step on shared params
-    (`chip_smoke.py` `[train]`, `tests/test_torch_cuda.py`) and not as two
-    trajectories: at CFG's size a 1e-7 relative change of the init
-    weights moves the second float step's loss by more than 0.1 % (BN over
-    8 values at 1x1, and Adam's first step moving every parameter by
-    about lr whatever its gradient's size)."""
+    (`repro_torch.train.parity`) and not as two trajectories: at CFG's
+    size a 1e-7 relative change of the init weights moves the second float
+    step's loss by more than 0.1 % (BN over 8 values at 1x1, and Adam's
+    first step moving every parameter by about lr whatever its gradient's
+    size)."""
     cfg = dataclasses.replace(PCFG, qat_steps=0, ckpt_every=0)
     net = PV.build_net(cfg)
     opt = PO.AdamWConfig(lr=cfg.lr, warmup_steps=1,
@@ -552,3 +551,42 @@ def test_tiny_float_phase_is_chaotic():
     base, moved = losses(0.0), losses(1e-7)
     assert base == PV.train(cfg, device="cpu").history["loss"][:2]
     assert abs(moved[1] - base[1]) / base[1] > 1e-3
+
+
+def test_step_parity_walk_is_the_trainers_run():
+    """`parity.verify_train_steps` with the CPU as its device: every step,
+    fake-quant forward and calibration round visited, each at distance 0,
+    and its walk held bitwise against `train`'s run."""
+    rep = PP.verify_train_steps(PCFG, device="cpu")
+    assert rep["failures"] == []
+    assert [e["step"] for e in rep["steps"]] == list(range(PCFG.total_steps))
+    assert [e["phase"] for e in rep["steps"]] == \
+        ["float"] * 4 + ["qat_act8"] * 2 + ["qat_act4"] * 2
+    assert [r["step"] for r in rep["rounds"]] == [6, 8]
+    for e in rep["steps"]:
+        assert e["loss_dev"] == e["loss_cpu"]
+        assert e["grad_elem"] == e["grad_l2"] == e["param_max"] == \
+            e["bn"] == e["opt_param"] == e["opt_moment"] == 0.0
+        assert e.get("fq_flipped", 0) == 0
+    assert all(e["fq_elements"] > 0 for e in rep["steps"][4:])
+    assert all(r["obs"] == 0.0 for r in rep["rounds"])
+
+
+def test_step_parity_catches_an_inexact_device(monkeypatch):
+    """A device that receives every float tensor 1e-3 relative off fails
+    the loss, parameter, optimizer, fake-quant and observer checks."""
+    def skewed(tree, dev):
+        return PT.tree_map(lambda t: t * (1 + 1e-3) if t.is_floating_point()
+                           else t, tree)
+
+    monkeypatch.setattr(PP, "_to", skewed)
+    cfg = dataclasses.replace(PCFG, float_steps=1, qat_steps=1,
+                              anneal_from=None, calibrate_every=1,
+                              ckpt_every=0)
+    fails = "\n".join(PP.verify_train_steps(cfg, device="cpu")["failures"])
+    for what in ("step 0 (float): loss", "step 1 (qat): loss",
+                 "where the gradient is sure", "the device's AdamW",
+                 "fake-quant output",
+                 "round after step 1: observer"):
+        assert what in fails, what
+    assert "not vision.train's run" not in fails
