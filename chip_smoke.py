@@ -141,9 +141,31 @@ last line:
      beside the card's name and power limit; then the tiny config's
      (alpha 0.35, 16x16, 4 classes, batch 8) float phase on the CPU, each
      step's loss computed on the card too from the same params and batch
-     (rtol 1e-4, the CPU tests'). Run
-     alone, after the build, with `python3 chip_smoke.py train`;
- 11. the kernels' JSON line (with `device_ms`, `library_device_ms` and
+     (rtol 1e-4, the CPU tests');
+ 11. tune: the route autotuner (`repro_torch.tune.tune_qnet`, batch 8, the
+     real timer, the latency objective) on both `[fleet]` fixtures on the
+     card; every unique key's winner with its `us`, `us_ref` and the
+     disqualified candidates is printed (and each cache saved under
+     `smoke_out/`), and the phase fails if a K2, K3 or K4 candidate was
+     disqualified, if the cache does not cover the net (coverage 1.0), or
+     if the tuner's end-to-end check raises. A `VisionEngine(tuned=)`
+     serves each fixture's 8 images with the launch counters set to 0 just
+     before and read just after: 0 of 8000 logits may differ from the JAX
+     package's, every MobileNetV2 stage output must equal its stored
+     digest, and the K2, K3 and K4 launches (K4 by variant, from
+     `fused_irb.plan`) must be what the resolved routes call for
+     (`ops.served_launches(plan, routes=, fused=)`). Then closed loops of
+     each net untuned and tuned in turns (3 pairs, TUNE_LOOP_S each,
+     buckets 1/2/4/8): FPS and p50, reported beside the card's name and
+     power limit, no gate; each variant's device busy share under
+     torch.profiler. `verify_export(tuned=)` must prove
+     `engine[tuned]` on the MobileNetV2 fixture. Last, the serving CLI
+     (`python -m repro_torch.launch.serve --vision`) as two subprocesses
+     on the card, both nets at hw 128: `--tune --tuned-cache` (writes the
+     cache), then `--tuned-cache` alone (loads it); both must exit 0 with
+     every request ok and 100% coverage, and the saved trace must pass
+     `validate_chrome_trace`. Prints the phase's seconds;
+ 12. the kernels' JSON line (with `device_ms`, `library_device_ms` and
      K6's `cold_device_ms` beside the keys the contract names; K2-K4's
      `launches` are the fleet run's, one micro-batch of each net), the card
      line, and
@@ -172,6 +194,7 @@ FLEET = {"mobilenet_v2": (FIXTURE, 224), "efficientnet_compact": (EFFNET, 128)}
 PAPER_FPS_PER_W = {"mobilenet_v2": 47.4, "efficientnet_compact": 233.3}
 OUT_DIR = os.path.join(ROOT, "smoke_out")  # the trace and metrics of [fleet]
 LOOP_S = 3.0  # a closed-loop run of [fleet]
+TUNE_LOOP_S = 1.5  # a closed-loop run of [tune]
 POWER_WINDOW_S = 6.0  # nvidia-smi sampling of the idle and busy draw
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core peak, same source
@@ -1405,6 +1428,215 @@ def phase_fleet(card):
     return counts
 
 
+def tune_net(m, q, card):
+    """Tune one fixture on the card; print each unique key's winner; fail
+    on a disqualified kernel candidate or on coverage below 1.0 (the
+    tuner's own end-to-end check raises on drift). Returns the plan."""
+    from repro_torch.tune import save_tuned, tune_qnet
+
+    t0 = time.perf_counter()
+    plan = tune_qnet(q, batch=8, device="cuda", verbose=True)
+    secs = time.perf_counter() - t0
+    save_tuned(plan, os.path.join(OUT_DIR, f"tune_{m}_cuda.json"))
+    by_route = {}
+    for key, ch in sorted(plan.entries.items()):
+        by_route[ch.route] = by_route.get(ch.route, 0) + 1
+        us_ref = "n/a" if ch.us_ref is None else f"{ch.us_ref:.3f}"
+        print(f"[tune] {m} {key}: {ch.route}{dict(ch.params) or ''} us "
+              f"{ch.us:.3f} us_ref {us_ref} of {ch.n_candidates} "
+              f"candidates; disqualified {list(ch.disqualified)}")
+    bad = {k: ch.disqualified for k, ch in plan.entries.items()
+           if any(d.startswith(("pallas_pw", "pallas_dw", "fused_irb"))
+                  for d in ch.disqualified)}
+    coverage = plan.coverage(q, backend="cuda")
+    print(f"[tune] {card}: {m} tuned in {secs:.3f} s (batch 8, the "
+          f"verification end to end included): {len(plan)} keys, winners by "
+          f"route {dict(sorted(by_route.items()))}, coverage {coverage}")
+    if bad or coverage != 1.0:
+        raise SystemExit(f"[tune] {m}: kernel candidates disqualified {bad}, "
+                         f"or coverage {coverage} != 1.0")
+    return plan
+
+
+def tuned_launches(eng):
+    """(K2-K4 launches, K4 by variant) one micro-batch of 8 of a tuned
+    engine makes: its resolved routes and fused blocks, each fused block's
+    variant from `fused_irb.plan` at its input shape."""
+    from repro_torch.core import compiler as CC
+    from repro_torch.kernels import fused_irb as FI
+    from repro_torch.kernels import ops as K
+
+    plan = CC.compile_net(eng.pq.spec)
+    fused = eng.stages[0].fused_blocks
+    per = K.served_launches(plan, routes=eng.stages[0].pq.routes,
+                            fused=fused)
+    variants = {"single": 0, "split_e": 0}
+    hw_in = {}
+    for _, block, _, in_hw in plan.op_descriptors():
+        hw_in.setdefault(block.name, in_hw)
+    for block in eng.pq.spec.blocks:
+        if block.name in fused:
+            e, d, p = block.ops
+            h = hw_in[block.name]
+            fp = FI.plan(8, h, h, e.in_ch, e.out_ch, p.out_ch, d.kernel,
+                         d.stride)
+            variants["split_e" if fp.splits > 1 else "single"] += 1
+    return per, variants
+
+
+def tune_serve(m, q, plan, imgs, want, fix, card):
+    """A `VisionEngine(tuned=)` serves the fixture's 8 images with the
+    launch counters set to 0 just before and read just after."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops as K
+    from repro_torch.kernels.fused_irb import fused_irb_q
+    from repro_torch.serve.vision import VisionEngine
+
+    eng = VisionEngine(q, device="cuda", buckets=(8,), tuned=plan)
+    eng.warmup()
+    rids = [eng.submit(img) for img in imgs]
+    K.reset_launch_counts()
+    res = eng.run()
+    counts, variants = K.launch_counts(), dict(fused_irb_q.variants)
+    per, per_var = tuned_launches(eng)
+    logits = np.stack([res[r].logits for r in rids])
+    n_diff = int(np.sum(logits != want))
+    print(f"[tune] {m}: VisionEngine(tuned=) on the card, 8 requests: "
+          f"{n_diff} of {logits.size} logits differ from the JAX package's "
+          f"run_qnet; launch counts {counts}, fused_irb_q by variant "
+          f"{variants}; the resolved routes call for "
+          f"{ {k: v for k, v in per.items() if v} }, by variant {per_var}")
+    if n_diff or counts != per or variants != per_var:
+        raise SystemExit(f"[tune] {m}: tuned logits differ, or launches "
+                         f"are not the resolved routes'")
+    if fix is not None:
+        y = torch.from_numpy(imgs).to(eng.device)
+        for i, st in enumerate(eng.stages[:-1]):
+            y = st.run(y)
+            if digests(y) != list(fix["stage_sha256"][i]):
+                raise SystemExit(f"[tune] {m}: tuned stage {i} "
+                                 f"({st.spec.cu}) differs from the "
+                                 f"reference's digests")
+        print(f"[tune] {m}: every tuned stage output equals the "
+              f"reference's digests")
+
+
+def tune_loops(qnets, plans, imgs, card):
+    """Closed loops of each net untuned and tuned in turns, 3 pairs (the
+    middle pair tuned first): rounds of 256 queued requests for
+    TUNE_LOOP_S, buckets 1/2/4/8. Then each variant under torch.profiler
+    (`profile`: wall, device busy, device intervals, top kernels)."""
+    from repro_torch.serve.vision import VisionEngine
+
+    for m, q in qnets.items():
+        engs = {t: VisionEngine(q, device="cuda", buckets=(1, 2, 4, 8),
+                                tuned=plans[m] if t else None)
+                for t in (False, True)}
+        for eng in engs.values():
+            eng.warmup()
+        runs = {False: [], True: []}
+        for pair in range(3):
+            for tuned in ((True, False) if pair == 1 else (False, True)):
+                eng = engs[tuned]
+                n, lat, t0 = 0, [], time.perf_counter()
+                while n == 0 or time.perf_counter() - t0 < TUNE_LOOP_S:
+                    for i in range(256):
+                        eng.submit(imgs[m][i % len(imgs[m])])
+                    done = [r for r in eng.run().values()
+                            if r.status == "ok"]
+                    n += len(done)
+                    lat += [r.latency_s for r in done]
+                fps = n / (time.perf_counter() - t0)
+                p50 = statistics.median(lat)
+                runs[tuned].append((fps, p50))
+                print(f"[tune] {card}: {m} closed loop, "
+                      f"{'tuned  ' if tuned else 'untuned'} (pair {pair}): "
+                      f"{n} requests, FPS {fps:.1f}, p50 "
+                      f"{p50 * 1e3:.3f} ms")
+        med = {t: (statistics.median(r[0] for r in runs[t]),
+                   statistics.median(r[1] for r in runs[t]))
+               for t in runs}
+        print(f"[tune] {card}: {m} median of 3, untuned FPS "
+              f"{med[False][0]:.1f} p50 {med[False][1] * 1e3:.3f} ms; tuned "
+              f"FPS {med[True][0]:.1f} p50 {med[True][1] * 1e3:.3f} ms "
+              f"(reported, no gate)")
+        for tuned in (False, True):
+            print(f"[tune] {m} {'tuned' if tuned else 'untuned'}:")
+            profile(engs[tuned], imgs[m])
+
+
+def tune_cli(card):
+    """The serving CLI on the card as two subprocesses: tune and write the
+    cache, then load it. Both must exit 0 with every request ok and full
+    coverage; the first run's trace must validate."""
+    from repro_torch.obs import validate_chrome_trace
+
+    cache = os.path.join(OUT_DIR, "serve_tuned_cuda.json")
+    trace = os.path.join(OUT_DIR, "serve_trace.json")
+    base = [sys.executable, "-m", "repro_torch.launch.serve", "--vision",
+            "--models", "mobilenet_v2,efficientnet_compact", "--hw", "128",
+            "--requests", "32"]
+    runs = (base + ["--tune", "--tuned-cache", cache, "--trace-out", trace,
+                    "--metrics-out",
+                    os.path.join(OUT_DIR, "serve_metrics.json")],
+            base + ["--tuned-cache", cache])
+    for i, cmd in enumerate(runs):
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=300, cwd=ROOT,
+                             env=dict(os.environ,
+                                      PYTHONPATH=os.path.join(ROOT, "src")))
+        lines = [ln for ln in out.stdout.splitlines()
+                 if ln.startswith("[serve-vision]")]
+        for ln in lines:
+            print(f"[tune] cli {i}| {ln}")
+        ok = "[serve-vision] 32/32 ok" in out.stdout
+        full = sum("tuned route coverage 100%" in ln for ln in lines) == 2
+        print(f"[tune] {card}: CLI run {i} exit {out.returncode} in "
+              f"{time.perf_counter() - t0:.1f} s; 32/32 ok: {ok}; coverage "
+              f"100% for both nets: {full}")
+        if out.returncode or not ok or not full:
+            raise SystemExit(f"[tune] CLI run {i} failed: "
+                             f"{out.stderr[-3000:]}")
+    with open(trace) as f:
+        errors = validate_chrome_trace(json.load(f))
+    print(f"[tune] CLI trace: validate_chrome_trace {len(errors)} "
+          f"violations")
+    if errors:
+        raise SystemExit(f"[tune] CLI trace invalid: {errors[:5]}")
+
+
+def phase_tune(card):
+    """The route autotuner and tuned serving of both full-width nets."""
+    import numpy as np
+
+    from repro_torch.core.qnet import load_qnet
+    from repro_torch.train.vision import verify_export
+
+    t_phase = time.perf_counter()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    qnets = {m: load_qnet(base + ".qnet") for m, (base, _) in FLEET.items()}
+    imgs = {m: images(hw) for m, (_, hw) in FLEET.items()}
+    fixes = {m: dict(np.load(base + ".npz")) for m, (base, _) in FLEET.items()}
+    plans = {m: tune_net(m, q, card) for m, q in qnets.items()}
+    for m, q in qnets.items():
+        tune_serve(m, q, plans[m], imgs[m], fixes[m]["logits"],
+                   fixes[m] if m == "mobilenet_v2" else None, card)
+    tune_loops(qnets, plans, imgs, card)
+    m = "mobilenet_v2"
+    t0 = time.perf_counter()
+    report = verify_export(qnets[m], imgs[m], device="cuda", tuned=plans[m])
+    print(f"[tune] {m}: verify_export(tuned=) in "
+          f"{time.perf_counter() - t0:.1f} s proved {report['routes']}")
+    if "engine[tuned]" not in report["routes"]:
+        raise SystemExit("[tune] the export proof did not prove "
+                         "engine[tuned]")
+    tune_cli(card)
+    print(f"[tune] {card}: phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def lm_inputs(cfg, dev):
     """The [lm] phase's cases on the card: (linears, decodes). A linear is
     (label, x [M, K], w_q, scale, bits, golden key or None); a decode is
@@ -1750,6 +1982,7 @@ def main() -> int:
     phase_stream(card)
     phase_fixed_point(imgs, card)
     launches = phase_fleet(card)  # the serving path: both nets
+    phase_tune(card)
     phase_train(card, torch.device("cuda", torch.cuda.current_device()))
     rows.update(lm_rows)
     launches.update({name: lm_launches[name] for name in lm_rows})

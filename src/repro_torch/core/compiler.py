@@ -55,6 +55,9 @@ class StageSignature:
 class CUPlan:
     net: G.NetSpec
     schedule: Tuple[CUAssignment, ...]
+    # optional measured per-op route selection (repro_torch.tune.TunedPlan);
+    # the stage compiler picks it up when the caller does not pass one
+    tuned: Optional[object] = None
 
     @property
     def body_invocations(self) -> int:
@@ -89,8 +92,9 @@ class CUPlan:
         tensor is collapsed — DENSE after the Tail's global pool). This is
         the shape walk the route autotuner keys its per-op cache on: the
         same (kind, shape, act_bits) op in two nets resolves to the same
-        tuning-cache entry. SE squeeze/excite ops are not enumerated — they
-        run on the reference path."""
+        tuning-cache entry. SE squeeze/excite ops are not enumerated: the
+        cache keys neither (the stage compiler routes the squeeze by
+        default, `TunedPlan.resolve_with_defaults`)."""
         descs: List[Tuple[str, G.BlockSpec, G.OpSpec, Optional[int]]] = []
         hw: Optional[int] = self.net.input_hw
         for a in self.schedule:
@@ -170,12 +174,15 @@ class CUPlan:
         return out
 
 
-def compile_net(net: G.NetSpec) -> CUPlan:
+def compile_net(net: G.NetSpec, tuned: Optional[object] = None) -> CUPlan:
     """Partition blocks into CUs by recurrence (paper Sec. 4.2.1).
 
     Rule: the stem (normal conv) and the first instance of the repeating
     block pattern form the Head; the remaining repeats form the Body; the
     final pointwise+avgpool is the Tail; the dense layer the Classifier.
+
+    `tuned` (a `repro_torch.tune.TunedPlan`) rides on the plan: the stage
+    compiler consults it for the measured per-op route selection.
     """
     blocks = list(net.blocks)
     schedule: List[CUAssignment] = []
@@ -201,7 +208,7 @@ def compile_net(net: G.NetSpec) -> CUPlan:
     for b, role in zip(blocks, roles):
         schedule.append(CUAssignment(role, b, inv))
         inv += 1
-    return CUPlan(net, tuple(schedule))
+    return CUPlan(net, tuple(schedule), tuned=tuned)
 
 
 __all__ = ["CUPlan", "CUAssignment", "compile_net", "HEAD", "BODY", "TAIL", "CLASSIFIER"]

@@ -18,10 +18,19 @@ residual skip-add is integer too (`res_fixed`). The hard-sigmoid gate stays
 float in both. Activations are NHWC for the 2-D nets and NTC for the 1-D
 (CONV1D/DW1D) ones; pooling and the SE gate reduce over whichever spatial
 axes the tensor has.
+
+Routes (`prepare_qnet(tuned=, routes=)`, `PreparedQNet.routes`): a measured
+route selection from a `repro_torch.tune.TunedPlan` makes each routed op run
+one of its alternate formulations of the same int32 accumulator — `int_ref`
+(float64 torch ops), `int_f32` (float32, under the 2^24 bound), `dw_shifts`,
+or the kernels K2 (`pallas_pw`) and K3 (`pallas_dw`) — so a route can move
+the wall clock, never a bit. Routes are float-requant only: `fixed_point`
+ignores them, and the hard-sigmoid gate never takes one.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict, Optional, Tuple, Union
 
@@ -34,6 +43,7 @@ from repro_torch.core.integer_ops import (
     int_conv1d,
     int_conv1d_f32,
     int_conv2d,
+    int_conv2d_f32,
     int_depthwise1d_shifts,
     int_depthwise_shifts,
     int_pointwise,
@@ -91,22 +101,33 @@ class PreparedQOp:
     in_zp: float
     out_scale: float
     out_zp: float
+    f32_exact: bool = False  # f32 accumulation provably exact for this op
+    # w_acc in the other float type (float64, or float32 for the stem
+    # conv), kept where an attached route accumulates in it
+    w_alt: Optional[torch.Tensor] = None
 
     @property
     def qmax(self) -> int:
         return 2**self.spec.act_bits - 1
 
 
+Routes = Dict[str, Tuple[str, Dict[str, int]]]
+
+
 @dataclasses.dataclass(frozen=True)
 class PreparedQNet:
     """A QNet lowered for serving on one device, with the integer skip-add
-    constants of every residual block (`res_fixed`, fixed-point mode)."""
+    constants of every residual block (`res_fixed`, fixed-point mode) and
+    the attached route selection (`routes`: op name -> (route, params);
+    ops absent from it take the default formulation, so a partial or empty
+    map is always safe)."""
 
     qnet: QNet
     ops: Dict[str, PreparedQOp]
     device: torch.device
     input_scale: torch.Tensor  # 0-dim f32: the network input quantizer scale
     res_fixed: Dict[str, Tuple[int, int, int, int, int]]
+    routes: Routes = dataclasses.field(default_factory=dict)
 
     @property
     def spec(self) -> G.NetSpec:
@@ -157,21 +178,104 @@ def _prepare_qop(qop: QOp, in_qmax: int, device: torch.device) -> PreparedQOp:
         in_zp=float(qop.in_zp),
         out_scale=float(qop.out_scale),
         out_zp=float(qop.out_zp),
+        f32_exact=f32_exact,
     )
 
 
+# the routes each op kind can take (the JAX package's `_accumulate` and
+# `_run_qop` dispatch)
+OP_ROUTES = {
+    G.CONV: ("int_ref", "int_f32"),
+    G.CONV1D: ("int_ref", "int_f32"),
+    G.DW: ("int_ref", "dw_shifts", "pallas_dw"),
+    G.DW1D: ("int_ref", "dw_shifts"),
+    G.PW: ("int_ref", "int_f32", "pallas_pw"),
+    G.DENSE: ("int_ref", "int_f32", "pallas_pw"),
+}
+
+
+def _kernel_params(route: str, params: Dict[str, int]) -> Dict[str, int]:
+    """The params of `route` that the port's kernel takes. K2 takes the
+    tile sizes of `pointwise_conv.BLOCKS_*` and drops others (the JAX
+    package's caches carry Pallas tiles such as block_m=256); K3 has one
+    layout and drops every param (the Pallas `block_h`). Any tile gives the
+    same bits, so dropping one moves no result."""
+    if route != "pallas_pw":
+        return {}
+    from repro_torch.kernels.pointwise_conv import (
+        BLOCKS_K, BLOCKS_M, BLOCKS_N)
+
+    legal = {"block_m": BLOCKS_M, "block_n": BLOCKS_N, "block_k": BLOCKS_K}
+    return {k: int(v) for k, v in params.items() if v in legal.get(k, ())}
+
+
+def _validate_routes(op_routes, ops: Dict[str, PreparedQOp]) -> Routes:
+    """Attach-time validation of resolved routes against the actual
+    prepared constants, so that serving never raises on a cache: unknown
+    op names, hard-sigmoid gates and routes the op's kind cannot take are
+    dropped; an `int_f32` route whose op fails the 2^24 exactness bound
+    here (other weights than the tuned net's) is dropped rather than run
+    inexactly; kernel params the port's kernel cannot take are dropped
+    (`_kernel_params`)."""
+    routes: Routes = {}
+    for name, (route, params) in op_routes.items():
+        pop = ops.get(name)
+        if (pop is None or pop.spec.act == G.HSIGMOID
+                or route not in OP_ROUTES.get(pop.spec.kind, ())):
+            continue
+        if route == "int_f32" and not pop.f32_exact:
+            continue
+        routes[name] = (route, _kernel_params(route, dict(params)))
+    return routes
+
+
+def _route_ready(pop: PreparedQOp, route: str) -> PreparedQOp:
+    """`pop` with the weights `route` accumulates in kept on the device
+    (`w_alt`), so a routed call converts nothing."""
+    dtype = {"int_ref": torch.float64, "int_f32": torch.float32}.get(route)
+    if dtype is None or pop.w_acc.dtype == dtype or (
+            pop.w_alt is not None and pop.w_alt.dtype == dtype):
+        return pop
+    return dataclasses.replace(pop, w_alt=pop.w_acc.to(dtype))
+
+
+def _attach_routes(pq: PreparedQNet, op_routes) -> PreparedQNet:
+    routes = _validate_routes(op_routes, pq.ops)
+    ops = dict(pq.ops)
+    for name, (route, _) in routes.items():
+        ops[name] = _route_ready(ops[name], route)
+    return dataclasses.replace(pq, ops=ops, routes=routes)
+
+
+def _resolve_tuned_routes(tuned, pq: PreparedQNet) -> Routes:
+    """Project a `TunedPlan` onto a prepared net, for its device's backend
+    (op name -> (route, params), not yet validated)."""
+    op_routes, _ = tuned.resolve(pq.spec, backend=pq.device.type)
+    return op_routes
+
+
 def prepare_qnet(qnet: Union[QNet, PreparedQNet], input_bits: int = 8,
-                 device=None) -> PreparedQNet:
+                 device=None, tuned=None, routes=None) -> PreparedQNet:
     """Lower a QNet to its device-resident serving form (one-time cost).
 
     Walks the graph to bound each op's input activations (the f32
     exactness gate) and uploads every constant once. An already-prepared
-    net is returned as it is when it lives on `device`."""
+    net is returned as it is when it lives on `device`.
+
+    `tuned` (a `repro_torch.tune.TunedPlan`) attaches its measured route
+    selection for this device's backend; callers that resolved a plan
+    already (the stage compiler) pass the op-name-keyed `routes` instead.
+    Either replaces the routes an already-prepared net carries, and both
+    are validated against the prepared constants (`_validate_routes`)."""
     dev = resolve_device(device)
     if isinstance(qnet, PreparedQNet):
         if qnet.device != dev:
             raise ValueError(
                 f"net prepared for {qnet.device}, asked for {dev}")
+        if routes is not None:
+            return _attach_routes(qnet, routes)
+        if tuned is not None:
+            return _attach_routes(qnet, _resolve_tuned_routes(tuned, qnet))
         return qnet
     ops: Dict[str, PreparedQOp] = {}
     res_fixed: Dict[str, Tuple[int, int, int, int, int]] = {}
@@ -195,15 +299,62 @@ def prepare_qnet(qnet: Union[QNet, PreparedQNet], input_bits: int = 8,
                 a.in_scale, a.in_zp, b.out_scale, b.out_zp,
                 *qnet.res_q[block.name])
     first = qnet.ops[qnet.spec.blocks[0].ops[0].name]
-    return PreparedQNet(
+    pq = PreparedQNet(
         qnet=qnet, ops=ops, device=dev,
         input_scale=torch.tensor(first.in_scale, dtype=torch.float32,
                                  device=dev),
         res_fixed=res_fixed)
+    if routes is None and tuned is not None:
+        routes = _resolve_tuned_routes(tuned, pq)
+    return pq if routes is None else _attach_routes(pq, routes)
 
 
-def _accumulate(x_q: torch.Tensor, pop: PreparedQOp) -> torch.Tensor:
-    """Int32 accumulator for one op (exact; see core/integer_ops)."""
+def _weight(pop: PreparedQOp, dtype: torch.dtype) -> torch.Tensor:
+    """The op's accumulation weights in `dtype` (w_acc's layout)."""
+    if pop.w_acc.dtype == dtype:
+        return pop.w_acc
+    if pop.w_alt is not None and pop.w_alt.dtype == dtype:
+        return pop.w_alt
+    return pop.w_acc.to(dtype)
+
+
+def _accumulate_route(x_q: torch.Tensor, pop: PreparedQOp,
+                      route: str) -> torch.Tensor:
+    """The int32 accumulator through one torch-op route (`OP_ROUTES`)."""
+    kind, stride = pop.spec.kind, pop.spec.stride
+    if route not in OP_ROUTES.get(kind, ()) or route.startswith("pallas"):
+        raise ValueError(f"no route {route!r} for {pop.spec.name} ({kind})")
+    if route == "dw_shifts":
+        if kind == G.DW1D:
+            return int_depthwise1d_shifts(x_q, pop.w_acc, stride=stride)
+        return int_depthwise_shifts(x_q, pop.w_acc, stride=stride)
+    if route == "int_f32":
+        w = _weight(pop, torch.float32)
+        if kind == G.CONV:
+            return int_conv2d_f32(x_q, w, stride=stride)
+        if kind == G.CONV1D:
+            return int_conv1d_f32(x_q, w, stride=stride)
+        return int_pointwise(x_q, w)
+    w = _weight(pop, torch.float64)  # int_ref
+    if kind == G.CONV:
+        return int_conv2d(x_q, w, stride=stride)
+    if kind == G.DW:
+        return int_conv2d(x_q, w.unsqueeze(2), stride=stride,
+                          groups=pop.spec.in_ch)
+    if kind == G.CONV1D:
+        return int_conv1d(x_q, w, stride=stride)
+    if kind == G.DW1D:
+        return int_conv1d(x_q, w.unsqueeze(1), stride=stride,
+                          groups=pop.spec.in_ch)
+    return int_pointwise(x_q, w)
+
+
+def _accumulate(x_q: torch.Tensor, pop: PreparedQOp,
+                route: Optional[str] = None) -> torch.Tensor:
+    """Int32 accumulator for one op (exact; see core/integer_ops): the
+    default formulation, or the torch-op `route` named."""
+    if route is not None:
+        return _accumulate_route(x_q, pop, route)
     kind = pop.spec.kind
     if kind == G.DW:
         return int_depthwise_shifts(x_q, pop.w_acc, stride=pop.spec.stride)
@@ -220,12 +371,33 @@ def _accumulate(x_q: torch.Tensor, pop: PreparedQOp) -> torch.Tensor:
     raise ValueError(kind)
 
 
-def run_qop(x_q: torch.Tensor, pop: PreparedQOp,
-            fixed_point: bool = False) -> torch.Tensor:
+@functools.cache
+def _kernel_ops():
+    """`kernels/ops.py`, imported at first use (it imports this module)."""
+    from repro_torch.kernels import ops
+    return ops
+
+
+def run_qop(x_q: torch.Tensor, pop: PreparedQOp, fixed_point: bool = False,
+            route: Optional[Tuple[str, Dict[str, int]]] = None
+            ) -> torch.Tensor:
     """One op: accumulate, then the requant epilogue (the f32 multiplier,
     or the integer mantissa/shift with `fixed_point`). The hard-sigmoid gate
-    is float in both modes, as in the reference."""
-    acc = _accumulate(x_q, pop)
+    is float in both modes, as in the reference.
+
+    `route` (name, params) runs the op through that route: `pallas_pw` /
+    `pallas_dw` through K2 / K3 (`kernels/ops.py`, which run their plain
+    versions on a CPU tensor), the others through `_accumulate`. It is
+    ignored with `fixed_point` and on the hard-sigmoid gate."""
+    if route is not None and pop.spec.act != G.HSIGMOID and not fixed_point:
+        name, params = route
+        if name == "pallas_dw":
+            return _kernel_ops().run_dw_qop(x_q, pop)
+        if name == "pallas_pw":
+            return _kernel_ops().run_pw_qop(x_q, pop, **params)
+        acc = _accumulate(x_q, pop, name)
+    else:
+        acc = _accumulate(x_q, pop)
     if pop.spec.act == G.HSIGMOID:
         # gate: y = relu6(x + 3)/6 quantized to [0, qmax] with S=1/qmax.
         # dequant the accumulator (S_x*S_w), apply hsigmoid, requantize with
@@ -265,14 +437,13 @@ def mean_round(y: torch.Tensor) -> torch.Tensor:
 
 
 def se_gate(y: torch.Tensor, block: G.BlockSpec, pq: PreparedQNet,
-            run_pw=None, fixed_point: bool = False) -> torch.Tensor:
-    """Squeeze-excitation on the dw output: pool, PW-squeeze (through
-    `run_pw` when given), hsigmoid excite, gate. The gated tensor keeps the
-    dw quantizer (z == 0, ReLU6 fused)."""
+            fixed_point: bool = False) -> torch.Tensor:
+    """Squeeze-excitation on the dw output: pool, PW-squeeze (through its
+    attached route, if any), hsigmoid excite, gate. The gated tensor keeps
+    the dw quantizer (z == 0, ReLU6 fused)."""
     sq, ex = pq.ops[block.se.squeeze.name], pq.ops[block.se.excite.name]
     pooled = mean_round(y)
-    s = (run_pw(pooled, sq) if run_pw is not None
-         else run_qop(pooled, sq, fixed_point))
+    s = run_qop(pooled, sq, fixed_point, route=pq.routes.get(sq.spec.name))
     gate_q = run_qop(s, ex)  # [B, C] in [0, qmax], S = 1/qmax
     gate_b = gate_q.reshape(gate_q.shape[0], *([1] * (y.ndim - 2)),
                             gate_q.shape[-1])
@@ -289,12 +460,16 @@ def run_block(
     in_z: float,
     fixed_point: bool = False,
 ) -> Tuple[torch.Tensor, float, float]:
-    """Execute one block (one CU invocation) in integer math."""
+    """Execute one block (one CU invocation) in integer math. The net's
+    attached `routes` run their ops (the SE squeeze included) through the
+    named routes (not in fixed point); every other op takes its default
+    formulation."""
+    routes = pq.routes if not fixed_point else {}
     y = x_q
     cur_s, cur_z = in_s, in_z
     for op in block.ops:
         pop = pq.ops[op.name]
-        y = run_qop(y, pop, fixed_point)
+        y = run_qop(y, pop, fixed_point, route=routes.get(op.name))
         cur_s, cur_z = pop.out_scale, pop.out_zp
         if block.se is not None and block.se_after == op.name:
             y = se_gate(y, block, pq, fixed_point=fixed_point)
@@ -376,6 +551,7 @@ __all__ = [
     "quantize_input",
     "PreparedQOp",
     "PreparedQNet",
+    "OP_ROUTES",
     "prepare_qnet",
     "run_qop",
     "residual_add",

@@ -11,13 +11,18 @@ replaces the multiply by the FPGA's integer one: M ~= mantissa * 2^-shift,
 acc * mantissa in int64, rounded half away from zero by the shift.
 
 The accumulators are integers, but CUDA has no int32 matmul or convolution
-in PyTorch, so `int_conv2d` and `int_pointwise` compute them in floating
-point where that is exact: float64 always is (|acc| < 2^53), float32 is when
-`f32_accum_exact` holds (every partial sum below 2^24). The float32 route
-refuses to run with TF32 matmuls enabled, which would round the products.
-The 1-D convolutions (NTC activations, explicit `(lo, hi)` pads for the
-streaming engine's edge segments) do the same; cuDNN's TF32 is switched off
-around the float32 one. The depthwise accumulations are int32 shifted
+in PyTorch, so `int_conv2d`, `int_conv1d` and `int_pointwise` compute them
+in floating point where that is exact: float64 always is (every product and
+partial sum of int8 weights and uint8 activations is an integer far below
+2^53), float32 is when `f32_accum_exact` holds (every partial sum below
+2^24). So the port's `int_ref` formulation (the JAX package's int32 XLA
+ops) is the float64 one, and `int_f32` the float32 one. The float32 matmul
+refuses to run with TF32 matmuls enabled, which would round the products;
+cuDNN's TF32 is switched off around the float32 convolutions
+(`int_conv2d_f32`, `int_conv1d_f32`). The 1-D convolutions take NTC
+activations and explicit `(lo, hi)` pads for the streaming engine's edge
+segments. `groups=C` turns either convolution into the depthwise one (the
+DW `int_ref` route); the default depthwise accumulations are int32 shifted
 multiply-adds on any device.
 """
 from __future__ import annotations
@@ -74,18 +79,45 @@ def clip_act(y_q: torch.Tensor, qmax: int) -> torch.Tensor:
     return torch.clamp(y_q, 0, qmax)
 
 
-def int_conv2d(x_q: torch.Tensor, w_hwio: torch.Tensor,
-               stride: int = 1) -> torch.Tensor:
-    """Integer convolution, SAME padding, NHWC in and out. `w_hwio` is the
-    HWIO weight in float64, so the accumulation is exact on any device."""
+@contextlib.contextmanager
+def _cudnn_without_tf32():
+    """cuDNN's float32 convolutions with TF32 off (it defaults to on), which
+    would round the products of an exact integer accumulation."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def _conv2d(x_q: torch.Tensor, w_hwio: torch.Tensor, stride: int,
+            groups: int) -> torch.Tensor:
     _, h, w, _ = x_q.shape
     k = w_hwio.shape[0]
     ph_lo, ph_hi, _ = same_pad_amount(h, k, stride)
     pw_lo, pw_hi, _ = same_pad_amount(w, k, stride)
     xt = F.pad(x_q.to(w_hwio.dtype).permute(0, 3, 1, 2),
                (pw_lo, pw_hi, ph_lo, ph_hi))
-    y = F.conv2d(xt, w_hwio.permute(3, 2, 0, 1), stride=stride)
+    y = F.conv2d(xt, w_hwio.permute(3, 2, 0, 1), stride=stride,
+                 groups=groups)
     return y.permute(0, 2, 3, 1).to(torch.int32).contiguous()
+
+
+def int_conv2d(x_q: torch.Tensor, w_hwio: torch.Tensor, stride: int = 1,
+               groups: int = 1) -> torch.Tensor:
+    """Integer convolution, SAME padding, NHWC in and out, in float64 (exact
+    on any device). `w_hwio` is [K, K, Cin/groups, Cout]; `groups=C` with a
+    [K, K, 1, C] weight is the depthwise convolution."""
+    return _conv2d(x_q, w_hwio.to(torch.float64), stride, groups)
+
+
+def int_conv2d_f32(x_q: torch.Tensor, w_hwio: torch.Tensor,
+                   stride: int = 1) -> torch.Tensor:
+    """`int_conv2d` in float32: exact only where `f32_accum_exact` holds
+    for the weights and the input range, and run with cuDNN's TF32 off."""
+    with _cudnn_without_tf32():
+        return _conv2d(x_q, w_hwio.to(torch.float32), stride, 1)
 
 
 def int_pointwise(x_q: torch.Tensor, w_acc: torch.Tensor) -> torch.Tensor:
@@ -135,33 +167,22 @@ def _conv1d_pads(t: int, kernel: int, stride: int,
     return int(padding[0]), int(padding[1])
 
 
-@contextlib.contextmanager
-def _cudnn_without_tf32():
-    """cuDNN's float32 convolutions with TF32 off (it defaults to on), which
-    would round the products of an exact integer accumulation."""
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev
-
-
 def _conv1d(x_q: torch.Tensor, w_kio: torch.Tensor, stride: int,
-            padding) -> torch.Tensor:
+            padding, groups: int = 1) -> torch.Tensor:
     k = w_kio.shape[0]
     lo, hi = _conv1d_pads(x_q.shape[1], k, stride, padding)
     xt = F.pad(x_q.to(w_kio.dtype).permute(0, 2, 1), (lo, hi))
-    y = F.conv1d(xt, w_kio.permute(2, 1, 0), stride=stride)
+    y = F.conv1d(xt, w_kio.permute(2, 1, 0), stride=stride, groups=groups)
     return y.permute(0, 2, 1).to(torch.int32).contiguous()
 
 
 def int_conv1d(x_q: torch.Tensor, w_kio: torch.Tensor, stride: int = 1,
-               padding="SAME") -> torch.Tensor:
-    """Integer temporal convolution, NTC in and out. `w_kio` is the
-    [K, Cin, Cout] weight in float64, so the accumulation is exact on any
-    device (|acc| < 2^53). `padding` is "SAME", "VALID" or (lo, hi)."""
-    return _conv1d(x_q, w_kio.to(torch.float64), stride, padding)
+               padding="SAME", groups: int = 1) -> torch.Tensor:
+    """Integer temporal convolution, NTC in and out, in float64 (exact on
+    any device). `w_kio` is [K, Cin/groups, Cout]; `groups=C` with a
+    [K, 1, C] weight is the depthwise one. `padding` is "SAME", "VALID" or
+    (lo, hi)."""
+    return _conv1d(x_q, w_kio.to(torch.float64), stride, padding, groups)
 
 
 def int_conv1d_f32(x_q: torch.Tensor, w_kio: torch.Tensor, stride: int = 1,
@@ -257,6 +278,7 @@ __all__ = [
     "requantize_float",
     "clip_act",
     "int_conv2d",
+    "int_conv2d_f32",
     "int_conv1d",
     "int_conv1d_f32",
     "int_pointwise",

@@ -9,8 +9,9 @@ which kernel:
     PW/DENSE   pointwise_conv.pointwise_conv_q
     DW         depthwise_conv.depthwise_conv_q
     IRB        fused_irb.fused_irb_q (the Body CU's expand -> dw -> project)
-    CONV       none: the stem runs as a float64 torch convolution (exact);
-               the SE gate, residual add and avgpool are torch ops too
+    CONV       none: the stem runs as a float64 torch convolution (exact;
+               a tuned route may take float32 under the 2^24 bound); the
+               SE gate, residual add and avgpool are torch ops too
 
 Every route here uses the reference interpreter's integer zero-point
 correction and residual form, so it is bit-exact with `core/cu.py`.
@@ -25,8 +26,9 @@ plain jnp, and so will the port's.
 `launch_counts()` reads the kernels' launch counters; K2, K4 and K5 also
 count their launches by variant (`pointwise_conv_q.variants`,
 `fused_irb_q.variants`, `quant_matmul.variants`). `served_launches(plan)`
-works out from a net's CU plan the launches one micro-batch makes on the
-served route.
+works out from a net's CU plan the launches one micro-batch makes through
+the stage executors, on the default routes or (`routes=`, `fused=`) on a
+resolved selection.
 """
 from __future__ import annotations
 
@@ -62,37 +64,50 @@ def reset_launch_counts() -> None:
             k.variants = dict.fromkeys(k.variants, 0)
 
 
-def served_launches(plan: _CC.CUPlan) -> Dict[str, int]:
-    """{kernel name: launches} of one micro-batch through the stages with
-    both kernel flags on: a fusable Body block is one fused-IRB launch;
-    every other block launches the depthwise kernel a DW op and the
-    pointwise kernel a PW/DENSE op (the hsigmoid excite excepted) and an SE
-    squeeze."""
+def served_launches(plan: _CC.CUPlan, routes=None,
+                    fused=None) -> Dict[str, int]:
+    """{kernel name: launches} of one micro-batch through the stage
+    executors: a block in `fused` is one fused-IRB launch, and every op of
+    the other blocks (the SE squeeze included) launches the kernel its
+    route names, K2 for `pallas_pw` and K3 for `pallas_dw`. Without
+    `routes`, those of the stages compiled on the card with no cache
+    (`compile_stages`' defaults: K4 for each fusable Body block, K3 / K2
+    for the other DW and PW/DENSE ops)."""
+    if routes is None:
+        from repro_torch.tune.cache import TunedPlan
+
+        routes, fused = TunedPlan(
+            backend="cuda", nets=(), tuned_batch=0, entries={}
+        ).resolve_with_defaults(plan.net, plan, backend="cuda",
+                                op_kernels=True, body_fast_path=True)
+    kernel_of = {"pallas_pw": "pointwise_conv_q",
+                 "pallas_dw": "depthwise_conv_q"}
     n = dict.fromkeys(launch_counts(), 0)
-    for cu_name, blocks in plan.stage_groups():
-        for block in blocks:
-            if cu_name == _CC.BODY and fusable_irb(block):
-                n["fused_irb_q"] += 1
-                continue
-            for op in block.ops:
-                if op.kind == G.DW:
-                    n["depthwise_conv_q"] += 1
-                elif op.kind in (G.PW, G.DENSE) and op.act != G.HSIGMOID:
-                    n["pointwise_conv_q"] += 1
-            if block.se is not None:
-                n["pointwise_conv_q"] += 1
+    for block in plan.net.blocks:
+        if block.name in (fused or ()):
+            n["fused_irb_q"] += 1
+            continue
+        ops = block.ops + ((block.se.squeeze,) if block.se else ())
+        for op in ops:
+            route = routes.get(op.name, ("", {}))[0]
+            if route in kernel_of and op.act != G.HSIGMOID:
+                n[kernel_of[route]] += 1
     return n
 
 
-def run_pw_qop(x_q: torch.Tensor, pop: _cu.PreparedQOp) -> torch.Tensor:
+def run_pw_qop(x_q: torch.Tensor, pop: _cu.PreparedQOp, *, block_m=None,
+               block_n=None, block_k=None) -> torch.Tensor:
     """Pointwise / dense op through the pointwise kernel. Clips to
-    [0, qmax] like the reference epilogue, linear ops included."""
+    [0, qmax] like the reference epilogue, linear ops included. `block_*`
+    are a tuned route's tile (`pointwise_conv.BLOCKS_*`; None: `plan`'s)."""
     return pointwise_conv_q(x_q, pop.w_kern, pop.mult, pop.zpc, pop.bias_q,
-                            qmax=pop.qmax)
+                            qmax=pop.qmax, block_m=block_m, block_n=block_n,
+                            block_k=block_k)
 
 
 def run_dw_qop(x_q: torch.Tensor, pop: _cu.PreparedQOp) -> torch.Tensor:
-    """Depthwise op through the depthwise kernel, integer correction form."""
+    """Depthwise op through the depthwise kernel, integer correction form.
+    The kernel has one layout, so a tuned route carries no params."""
     return depthwise_conv_q(x_q, pop.w_kern, pop.mult, pop.zpc, pop.bias_q,
                             kernel=pop.spec.kernel, stride=pop.spec.stride,
                             qmax=pop.qmax)
@@ -140,35 +155,6 @@ def run_irb_block(x_q: torch.Tensor, block: G.BlockSpec,
         raise ValueError(f"{block.name} does not fit the fused-IRB kernel")
     tensors, kw, out_s, out_z = irb_args(block, pq, in_s, in_z)
     return fused_irb_q(x_q, *tensors, **kw), out_s, out_z
-
-
-def run_block_kernels(x_q: torch.Tensor, block: G.BlockSpec,
-                      pq: _cu.PreparedQNet, in_s: float, in_z: float):
-    """One block through the per-op kernels (no IRB fusion): DW through the
-    depthwise kernel, PW/DENSE (the SE squeeze included) through the
-    pointwise kernel; the stem CONV, the hsigmoid gate, the residual and the
-    avgpool are `core/cu.py`'s torch ops. Returns (y_q, out_s, out_z)."""
-    y = x_q
-    cur_s, cur_z = in_s, in_z
-    for op in block.ops:
-        pop = pq.ops[op.name]
-        if op.kind == G.DW:
-            y = run_dw_qop(y, pop)
-        elif op.kind in (G.PW, G.DENSE) and op.act != G.HSIGMOID:
-            y = run_pw_qop(y, pop)
-        else:
-            y = _cu.run_qop(y, pop)
-        cur_s, cur_z = pop.out_scale, pop.out_zp
-        if block.se is not None and block.se_after == op.name:
-            y = _cu.se_gate(y, block, pq, run_pw=run_pw_qop)
-    if block.residual:
-        y_s, y_z = pq.res_q[block.name]
-        qmax = 2 ** block.ops[-1].act_bits - 1
-        y = _cu.residual_add(x_q, in_s, in_z, y, cur_s, cur_z, y_s, y_z, qmax)
-        cur_s, cur_z = y_s, y_z
-    if block.avgpool:
-        y = _cu.mean_round(y)
-    return y, cur_s, cur_z
 
 
 # ---------------------------------------------------------------------------
@@ -235,5 +221,4 @@ __all__ = [
     "fusable_irb",
     "irb_args",
     "run_irb_block",
-    "run_block_kernels",
 ]

@@ -1,0 +1,201 @@
+"""Serving driver: integer vision QNets through the port's engines.
+
+Counterpart of the vision half of `repro/launch/serve.py`:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --vision \
+        --models mobilenet_v2,efficientnet_compact --hw 128 --requests 32 \
+        [--tune] [--tuned-cache PATH] [--power-budget-w W] \
+        [--trace-out trace.json] [--metrics-out metrics.json] [--device cpu]
+
+Each model is a calibrated integer QNet (`models.layers.make_calibrated_qnet`
+from `--seed`: the port's own random draws, so not the JAX CLI's nets)
+served through the pipelined CU stage executors of its `VisionEngine`;
+every model shares one `MultiModelEngine` (EDF across models) and, with
+`--power-budget-w`, one power governor. `--tuned-cache` serves through a
+saved route selection (`repro_torch.tune`); `--tune` measures one on the
+device first (and writes it to `--tuned-cache` when given). `--trace-out`
+exports the request-lifecycle Chrome trace, `--metrics-out` the metrics
+registry (Prometheus text for .prom/.txt, JSON otherwise); `python -m
+repro_torch.obs summarize` renders either.
+
+Without `--device` the driver runs on CUDA and fails where there is no
+card. Not ported yet, and refused with a non-zero exit: LM serving (no
+`--vision`; ROADMAP queue 1 item 12) and data-parallel replicas
+(`--replicas` > 1; item 11).
+"""
+from __future__ import annotations
+
+import argparse
+import functools
+import sys
+import time
+
+import numpy as np
+
+VISION_ARCHS = ("mobilenet_v2", "efficientnet_compact")
+
+
+def vision_qnet(arch: str, hw: int, seed: int = 0, device=None):
+    """The served net of `arch` at input `hw`: the reference CLI's
+    configuration (MobileNetV2 alpha 0.35, the compact EfficientNet; 1000
+    classes), calibrated on `device` (CUDA unless named)."""
+    from repro_torch.models import efficientnet as effn
+    from repro_torch.models import layers
+    from repro_torch.models import mobilenet_v2 as mnv2
+
+    if arch == "mobilenet_v2":
+        net = mnv2.build(alpha=0.35, input_hw=hw, num_classes=1000)
+    elif arch == "efficientnet_compact":
+        net = effn.build_compact(input_hw=hw, num_classes=1000)
+    else:
+        raise ValueError(
+            f"unknown vision arch {arch!r} (pick from {VISION_ARCHS})")
+    return layers.make_calibrated_qnet(net, seed=seed, device=device)
+
+
+def _vision_tuned(args, qnets, device):
+    """The serving route selection: measured live (--tune), or loaded from
+    a saved cache (--tuned-cache). Returns a TunedPlan or None."""
+    from repro_torch.tune import load_tuned, save_tuned, tune_qnet
+
+    if args.tune:
+        plans = [tune_qnet(q, batch=args.batch, device=device)
+                 for q in qnets.values()]
+        tuned = functools.reduce(lambda a, b: a.merge(b), plans)
+        if args.tuned_cache:
+            save_tuned(tuned, args.tuned_cache)
+            print(f"[serve-vision] tuned {len(tuned)} entries "
+                  f"-> {args.tuned_cache}")
+        return tuned
+    if args.tuned_cache:
+        tuned = load_tuned(args.tuned_cache)
+        print(f"[serve-vision] loaded tuning cache {args.tuned_cache} "
+              f"({len(tuned)} entries, backend {tuned.backend})")
+        return tuned
+    return None
+
+
+def vision_main(args):
+    """Serve `args.requests` seeded images round-robin over the models.
+    Returns {"results": {(model, rid): RequestResult}, "requests":
+    [((model, rid), image)], "qnets": {model: QNet}, "coverage": {model:
+    fraction} (tuned runs only), "stats": {model: EngineStats}}."""
+    from repro_torch.core import cu
+    from repro_torch.serve.vision import MultiModelEngine, VisionEngine
+
+    if args.replicas > 1:
+        raise SystemExit(
+            "--replicas > 1: data-parallel replicas are not ported yet "
+            "(ROADMAP queue 1 item 11)")
+    dev = cu.resolve_device(args.device)
+    tracer = metrics = None
+    if args.trace_out:
+        from repro_torch.obs import Tracer
+        tracer = Tracer()  # one tracer across models = one timeline
+    if args.metrics_out:
+        from repro_torch.obs import MetricsRegistry
+        metrics = MetricsRegistry()
+    # --batch bounds the largest micro-batch
+    buckets = tuple(sorted(
+        {b for b in (1, 2, 4) if b < args.batch} | {args.batch}))
+    models = [m.strip() for m in args.models.split(",") if m.strip()]
+    qnets = {m: vision_qnet(m, args.hw, args.seed, device=dev)
+             for m in models}
+    tuned = _vision_tuned(args, qnets, dev)
+    coverage = {}
+    if tuned is not None:
+        for m, q in qnets.items():
+            coverage[m] = tuned.coverage(q, backend=dev.type)
+            print(f"[serve-vision] {m}: tuned route coverage "
+                  f"{coverage[m]:.0%} ({dev.type})")
+    engines = {
+        m: VisionEngine(qnets[m], buckets=buckets, tuned=tuned,
+                        tracer=tracer, metrics=metrics, name=m, device=dev)
+        for m in models
+    }
+    router = MultiModelEngine(engines, power_budget_w=args.power_budget_w)
+    if args.power_budget_w:
+        print(f"[serve-vision] power cap {args.power_budget_w:.1f} W "
+              f"shared across {len(models)} model(s)")
+    router.warmup()
+    rng = np.random.default_rng(args.seed)
+    now = time.perf_counter()
+    requests = []
+    for i in range(args.requests):
+        img = rng.uniform(-1, 1, (args.hw, args.hw, 3)).astype(np.float32)
+        deadline = now + 5.0 if i % 3 == 0 else None
+        requests.append((router.submit(models[i % len(models)], img,
+                                       deadline_s=deadline), img))
+    results = router.run()
+    n_ok = sum(1 for r in results.values() if r.status == "ok")
+    print(f"[serve-vision] {n_ok}/{len(results)} ok over "
+          f"{len(models)} model(s) on {dev}")
+    stats = router.stats()
+    for m, st in sorted(stats.items()):
+        print(f"[serve-vision] {m}: fps={st.fps:.1f} "
+              f"p95={st.latency_p95_s*1e3:.1f}ms "
+              f"micro_batches={st.micro_batches} replicas={st.replicas}")
+        print(f"[serve-vision] {m}: "
+              f"{st.energy_j_per_image*1e6:.1f} uJ/image "
+              f"({st.power_source}) -> {st.watts:.1f} W, "
+              f"{st.fps_per_watt:.1f} fps/W"
+              + (f", shed={st.n_shed} deferred={st.n_deferred}"
+                 if args.power_budget_w else ""))
+    if tracer is not None:
+        print(f"[serve-vision] trace -> {tracer.save(args.trace_out)} "
+              f"({len(tracer)} events; load in https://ui.perfetto.dev)")
+    if metrics is not None:
+        print(f"[serve-vision] metrics -> {metrics.save(args.metrics_out)}")
+    if tracer is not None or metrics is not None:
+        from repro_torch.obs import render_report, summarize_trace
+        print(render_report(
+            summarize_trace(tracer.to_chrome()) if tracer else None,
+            metrics.snapshot() if metrics else None))
+    return {"results": results, "requests": requests, "qnets": qnets,
+            "coverage": coverage, "stats": stats}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
+    ap.add_argument("--vision", action="store_true",
+                    help="serve integer vision QNets (LM serving is not "
+                         "ported yet)")
+    ap.add_argument("--models", default="mobilenet_v2",
+                    help="comma-separated vision model list "
+                         f"(from {', '.join(VISION_ARCHS)})")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="data-parallel replicas (not ported yet: only 1)")
+    ap.add_argument("--hw", type=int, default=48, help="vision input H=W")
+    ap.add_argument("--batch", type=int, default=8,
+                    help="largest vision micro-batch bucket")
+    ap.add_argument("--tune", action="store_true",
+                    help="autotune per-op routes for each vision model "
+                         "before serving (saved to --tuned-cache if given)")
+    ap.add_argument("--tuned-cache", default=None,
+                    help="tuning-cache JSON to load (or write, with "
+                         "--tune) for vision serving")
+    ap.add_argument("--power-budget-w", type=float, default=None,
+                    help="shared modeled-power cap in watts: one rolling-"
+                         "window governor across all models defers or "
+                         "sheds work to stay under the cap")
+    ap.add_argument("--trace-out", default=None,
+                    help="write a Chrome trace of the serving run")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write the metrics registry (.prom/.txt = "
+                         "Prometheus text, else JSON snapshot)")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: CUDA, which must exist)")
+    args = ap.parse_args(argv)
+
+    if not args.vision:
+        raise SystemExit(
+            "LM serving is not ported yet (ROADMAP queue 1 item 12); pass "
+            "--vision to serve the vision QNets")
+    return vision_main(args)
+
+
+if __name__ == "__main__":
+    main()
+    sys.exit(0)

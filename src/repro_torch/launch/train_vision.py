@@ -4,15 +4,16 @@
         --model mobilenet_v2 --hw 16 --classes 4 \
         --float-steps 40 --qat-steps 20 [--anneal-from 8] \
         --ckpt-dir /tmp/ckpt [--resume] \
-        --export /tmp/mnv2.qnet [--device cpu]
+        --export /tmp/mnv2.qnet [--tune] [--device cpu]
 
 The paper's Fig. 1 front end on one card (or on the CPU with `--device
 cpu`): float pre-training with BatchNorm, BN fusion, QAT with online
 quantization (held-out calibration rounds through `core/calibrate`),
 periodic async checkpoints with bitwise restart, and an export that
 proves the `.qnet` bit-exact through every serving route (reference
-interpreter, prepared net, stage executors, `VisionEngine`) before writing
-it.
+interpreter, prepared net, stage executors, `VisionEngine`; with `--tune`
+also the `VisionEngine` serving the route selection the autotuner measured
+on the exported net) before writing it.
 
     PYTHONPATH=src python -m repro_torch.launch.train_vision \
         --check-artifact /tmp/mnv2.qnet [--device cpu]
@@ -104,6 +105,9 @@ def main(argv=None):
                          "(after proving every serving route bit-exact)")
     ap.add_argument("--no-verify", action="store_true",
                     help="skip the export parity proof (NOT recommended)")
+    ap.add_argument("--tune", action="store_true",
+                    help="autotune the exported net and prove the tuned "
+                         "VisionEngine route too")
     ap.add_argument("--smoke", action="store_true",
                     help="tiny CI-sized run (overrides steps/batch)")
     ap.add_argument("--check-artifact", default=None, metavar="PATH",
@@ -142,7 +146,8 @@ def main(argv=None):
         result, qnet, report = V.train_and_export(
             cfg, ckpt_dir=args.ckpt_dir, resume=args.resume,
             stop_after=args.stop_after, path=args.export,
-            verify=not args.no_verify, log=print, device=args.device)
+            verify=not args.no_verify, tune=args.tune, log=print,
+            device=args.device)
     else:
         result = V.train(cfg, ckpt_dir=args.ckpt_dir, resume=args.resume,
                          stop_after=args.stop_after, log=print,

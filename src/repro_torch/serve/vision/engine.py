@@ -27,8 +27,10 @@ crosses the budget. With `tracer=`/`metrics=` (`repro_torch.obs`) every
 request's lifecycle becomes trace spans and every stage's work metrics,
 with the same clock reads, spans and instruments as the reference's.
 
-Not ported yet: the data-parallel mesh (`EngineStats.replicas` is 1) and
-tuned route plans.
+`tuned=` serves a measured route selection (`repro_torch.tune`; see
+`compile_stages`), and the same cache prices the energy model's ops.
+
+Not ported yet: the data-parallel mesh (`EngineStats.replicas` is 1).
 """
 from __future__ import annotations
 
@@ -135,9 +137,13 @@ class VisionEngine:
     window all read it; tests pass a fake.
     `tracer` / `metrics` / `name`: observability (`repro_torch.obs`); the
     name labels this engine's instruments and request spans.
+    `tuned`: a `repro_torch.tune.TunedPlan` — the measured per-op route
+    selection; ops with no cache entry keep the kernel flags' defaults
+    (see `compile_stages`). The same cache feeds the energy model's per-op
+    timings.
     `power_model` / `energy`: override the device power curve or the whole
     `EnergyReport` (defaults: the device's per-backend constants, or RAPL
-    on a CPU, and `estimate_energy` over this plan).
+    on a CPU, and `estimate_energy` over this plan and cache).
     `power_budget_w`: power-capped mode — before each dispatch the batch
     former asks a `PowerGovernor` whether the modeled rolling-window
     (`power_window_s`) watt estimate would cross the budget; if so,
@@ -148,7 +154,8 @@ class VisionEngine:
     @classmethod
     def from_artifact(cls, path: str, **kwargs) -> "VisionEngine":
         """Serve a frozen `.qnet` deployment artifact straight from disk (its
-        build record rebuilds the NetSpec). Engine knobs pass through."""
+        build record rebuilds the NetSpec). Engine knobs (`buckets`,
+        `tuned`, ...) pass through."""
         return cls(load_qnet(path), **kwargs)
 
     def __init__(
@@ -162,6 +169,7 @@ class VisionEngine:
         op_kernels: str = "auto",
         fixed_point: bool = False,
         device=None,
+        tuned=None,
         clock: Optional[Callable[[], float]] = None,
         max_queue: int = 4096,
         tracer: Optional[OT.Tracer] = None,
@@ -186,7 +194,7 @@ class VisionEngine:
         self.stages: List[CompiledStage] = compile_stages(
             self.pq, self.plan, input_bits=input_bits,
             body_fast_path=body_fast_path, op_kernels=op_kernels,
-            fixed_point=fixed_point, device=self.device)
+            fixed_point=fixed_point, device=self.device, tuned=tuned)
         self.name = name
         self.tracer = tracer if tracer is not None else OT.NULL
         self.metrics = metrics
@@ -194,10 +202,10 @@ class VisionEngine:
         self.pipe = PipelinedExecutor(self.stages, clock=self._clock,
                                       tracer=tracer, metrics=metrics)
         self.input_shape = self.pq.spec.input_shape()  # (H, W, C)
-        # calibrated energy model over this plan, priced on this device's
-        # power curve
+        # calibrated energy model over this plan: tuned route timings (when
+        # a cache is in hand) priced on this device's power curve
         self.energy = energy if energy is not None else estimate_energy(
-            self.pq.spec, self.plan, power=power_model,
+            self.pq.spec, self.plan, tuned=tuned, power=power_model,
             backend=self.device.type)
         self.power_budget_w = power_budget_w
         self.shed_slo = shed_slo

@@ -6,17 +6,22 @@ same-role CU invocations (Head, Body, Tail, Classifier) becomes one
 static (`cu.propagate_qparams`), so the chain is bit-exact with the
 monolithic `cu.run_qnet`.
 
-The integer datapath of a stage runs on one of three op implementations:
+The integer datapath of a stage runs each block on one of two paths: the
+fused-IRB kernel K4 (a block in `fused_blocks`, the expanded tensor kept on
+chip), or `cu.run_block`, whose ops take the routes attached to the
+prepared net (the kernels K2 / K3 or a torch-op formulation; an unrouted
+op runs the reference torch op). Both sets come from one resolution,
+`TunedPlan.resolve_with_defaults`: `tuned=` (a `repro_torch.tune.TunedPlan`,
+or `plan.tuned`) gives the measured selection, and its misses, or every op
+without a cache, take the defaults of two flags:
 
-  * the reference torch ops of `core/cu.py` (`run_block`);
-  * the per-op kernels (`op_kernels`): DW through the depthwise kernel,
-    PW/DENSE through the pointwise kernel, in every stage;
-  * the fused-IRB kernel (`body_fast_path`): each fusable Body block as one
-    kernel that keeps the expanded tensor on chip.
+  * `op_kernels`: DW through K3, PW/DENSE and the SE squeeze through K2;
+  * `body_fast_path`: each fusable Body block through K4.
 
 Both flags are "auto" (on when the device is CUDA), "on" or "off". On the
 CPU the kernel wrappers run their plain PyTorch versions, so "on" there
-exercises the same routing with the same bits.
+exercises the same routing with the same bits. A partial or foreign cache
+therefore serves the untuned route wherever it has no entry.
 
 Retrace accounting: the JAX package traces a stage once per novel input
 shape (its `jax.jit` cache) and counts a trace at a batch size outside
@@ -44,6 +49,7 @@ from repro_torch.core import cu
 from repro_torch.core import graph as G
 from repro_torch.core.qnet import QNet
 from repro_torch.kernels import ops as K
+from repro_torch.tune.cache import TunedPlan
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,14 +74,13 @@ class CompiledStage:
     `allowed_batches`."""
 
     def __init__(self, spec: StageSpec, pq: cu.PreparedQNet, *,
-                 input_bits: int, fast_path: bool, op_kernels: bool,
-                 fixed_point: bool = False):
+                 input_bits: int, fixed_point: bool = False,
+                 fused_blocks: frozenset = frozenset()):
         self.spec = spec
-        self.pq = pq
+        self.pq = pq  # its routes are the ops' resolved routes
         self._input_bits = input_bits
         self._fixed_point = fixed_point
-        self._fast_path = fast_path and spec.cu == CC.BODY
-        self._op_kernels = op_kernels
+        self.fused_blocks = fused_blocks  # the blocks that run K4
         self.invocations = 0  # CU invocations dispatched (micro-batches)
         self.traces = 0  # novel input shapes (the reference's jit misses)
         self._shapes: set = set()
@@ -116,10 +121,8 @@ class CompiledStage:
                                   self._input_bits)
         s, z = spec.in_scale, spec.in_zp
         for block in spec.blocks:
-            if self._fast_path and K.fusable_irb(block):
+            if block.name in self.fused_blocks:
                 y, s, z = K.run_irb_block(y, block, pq, s, z)
-            elif self._op_kernels:
-                y, s, z = K.run_block_kernels(y, block, pq, s, z)
             else:
                 y, s, z = cu.run_block(y, block, pq, s, z,
                                        self._fixed_point)
@@ -147,25 +150,42 @@ def compile_stages(
     op_kernels: str = "auto",
     fixed_point: bool = False,
     device=None,
+    tuned=None,
 ) -> List[CompiledStage]:
     """Lower a CUPlan into the ordered list of stage executors.
 
     The net is prepared on `device` (CUDA unless the caller passes another;
-    a `PreparedQNet` must already live there)."""
+    a `PreparedQNet` must already live there) with the routes resolved from
+    `tuned` (or `plan.tuned`, or no cache) and the flags for this device's
+    backend (see the module docstring); they replace any routes the net
+    carries. Tuned routes are float-requant formulations, so `tuned`
+    refuses `fixed_point=True`; the kernels' epilogue is float-multiplier
+    only, so fixed point turns "auto" flags off and refuses "on"."""
     pq = cu.prepare_qnet(qnet, input_bits=input_bits, device=device)
     if plan is None:
         plan = CC.compile_net(pq.spec)
+    if tuned is None:
+        tuned = plan.tuned
     fast = _resolve(body_fast_path, "body_fast_path", pq.device)
     kerns = _resolve(op_kernels, "op_kernels", pq.device)
-    if fixed_point and (fast or kerns):
-        # the kernels' requant epilogue is float-multiplier only; serving
-        # through them would not be run_qnet(fixed_point=True)
+    if fixed_point:
+        if tuned is not None:
+            raise ValueError(
+                "tuned= carries float-requant routes only and cannot serve "
+                "fixed_point=True")
         if body_fast_path == "on" or op_kernels == "on":
             raise ValueError(
                 "body_fast_path/op_kernels='on' is incompatible with "
                 "fixed_point=True (the kernels have no fixed-point requant "
                 "mode)")
         fast = kerns = False
+    if tuned is None:
+        tuned = TunedPlan(backend=pq.device.type, nets=(), tuned_batch=0,
+                          entries={})
+    op_routes, fused = tuned.resolve_with_defaults(
+        pq.spec, plan, backend=pq.device.type, op_kernels=kerns,
+        body_fast_path=fast)
+    pq = cu.prepare_qnet(pq, device=pq.device, routes=op_routes)
     sigs = plan.stage_signatures()
     stages: List[CompiledStage] = []
     s, z = cu.input_qparams(pq)
@@ -176,8 +196,8 @@ def compile_stages(
             out_scale=out_s, out_zp=out_z, quantizes_input=(i == 0),
             dequantizes_output=(i == len(sigs) - 1), signature=sig)
         stages.append(CompiledStage(spec, pq, input_bits=input_bits,
-                                    fast_path=fast, op_kernels=kerns,
-                                    fixed_point=fixed_point))
+                                    fixed_point=fixed_point,
+                                    fused_blocks=frozenset(fused)))
         s, z = out_s, out_z
     return stages
 

@@ -23,12 +23,13 @@ Counterpart of `repro/train/vision.py`, the paper's front end end to end:
      fused tree.
   5. **Export**: calibrate -> `quantize_net` -> prove the artifact bit-exact
      through the reference interpreter, `prepare_qnet`, the stage executors
-     (on the card: the K2-K4 kernels) and a `VisionEngine`, and only then
-     write the `.qnet` with its build record and training provenance.
+     (on the card: the K2-K4 kernels) and a `VisionEngine` — and, with
+     `tune=True` or `tuned=`, a `VisionEngine` serving the measured route
+     selection (`repro_torch.tune`) — and only then write the `.qnet` with
+     its build record and training provenance.
 
 Every entry point runs on CUDA unless the caller passes `device="cpu"`,
-and raises when there is no card. Not ported yet: autotuning the export
-(`tune=`/`tuned=`, ROADMAP queue 1 item 9).
+and raises when there is no card.
 """
 from __future__ import annotations
 
@@ -653,12 +654,13 @@ def _check_equal(name: str, got, want: np.ndarray, report: List[str]):
     report.append(name)
 
 
-def verify_export(qnet, x: np.ndarray, device=None) -> Dict[str, Any]:
+def verify_export(qnet, x: np.ndarray, device=None,
+                  tuned=None) -> Dict[str, Any]:
     """Prove one input batch bit-exact across every serving route on
     `device` (CUDA unless named): reference interpreter, `prepare_qnet`,
-    the stage executors (the K2-K4 kernels on the card) and a
-    `VisionEngine`. Raises `ExportParityError` on the first route that
-    drifts one LSB."""
+    the stage executors (the K2-K4 kernels on the card), a `VisionEngine`
+    and, given a `TunedPlan`, a `VisionEngine(tuned=)` (`engine[tuned]`).
+    Raises `ExportParityError` on the first route that drifts one LSB."""
     from repro_torch.serve.vision import VisionEngine, compile_stages
 
     x = np.asarray(x, np.float32)
@@ -683,8 +685,17 @@ def verify_export(qnet, x: np.ndarray, device=None) -> Dict[str, Any]:
     _check_equal("engine", np.stack([res[r].logits for r in rids]), logits,
                  proven)
 
+    if tuned is not None:
+        eng = VisionEngine(pq, buckets=(x.shape[0],), device=pq.device,
+                           tuned=tuned)
+        rids = [eng.submit(img) for img in x]
+        res = eng.run()
+        _check_equal("engine[tuned]",
+                     np.stack([res[r].logits for r in rids]), logits, proven)
+
     return {"routes": proven, "stages": len(cus), "cus": cus,
-            "logits": logits, "device": str(pq.device)}
+            "logits": logits, "device": str(pq.device),
+            "tuned_entries": len(tuned) if tuned is not None else 0}
 
 
 def export(
@@ -696,7 +707,10 @@ def export(
     observers: Optional[Dict[str, ActObserver]] = None,
     verify: bool = True,
     verify_batch: Optional[np.ndarray] = None,
+    tuned=None,
+    tune: bool = False,
     provenance: Optional[Dict[str, Any]] = None,
+    tracer: Optional[OT.Tracer] = None,
     device=None,
 ) -> Tuple[Q.QNet, Dict[str, Any]]:
     """BN-fuse (if still unfused) -> calibrate on the held-out stream ->
@@ -705,8 +719,11 @@ def export(
     `observers`: the run's online-quantization observers (once
     `observers_ready`), or None to recalibrate from scratch with
     true-min/max observers. Calibration and the proof run on `device`
-    (CUDA unless named; the params are moved there). The artifact is
-    written only after every proof passes."""
+    (CUDA unless named; the params are moved there). `tune=True` autotunes
+    the exported net on that device (`repro_torch.tune.tune_qnet`, with
+    `tracer` passed on) and proves the tuned engine too;
+    `tuned=` passes a ready plan instead. The artifact is written only
+    after every proof passes."""
     dev = cu.resolve_device(device)
     params = T.tree_map(lambda t: t.to(dev), params)
     if _has_bn(params):
@@ -715,11 +732,16 @@ def export(
         observers, _ = run_calibration(params, net, cfg, momentum=None)
     qnet = Q.quantize_net(params, net, observers)
 
+    if tune and tuned is None:
+        from repro_torch.tune import tune_qnet
+        tuned = tune_qnet(qnet, batch=min(cfg.batch, 8), repeats=1,
+                          device=dev, tracer=tracer)
+
     report: Dict[str, Any] = {"verified": False}
     if verify:
         if verify_batch is None:
             verify_batch = calibration_batches(cfg, "cpu")[0].numpy()
-        report = verify_export(qnet, verify_batch, device=dev)
+        report = verify_export(qnet, verify_batch, device=dev, tuned=tuned)
         report["verified"] = True
 
     if path is not None:
@@ -749,6 +771,7 @@ def train_and_export(
     path: Optional[str] = None,
     verify: bool = True,
     verify_batch: Optional[np.ndarray] = None,
+    tune: bool = False,
     log: Optional[Callable[[str], None]] = None,
     tracer: Optional[OT.Tracer] = None,
     metrics: Optional[OM.MetricsRegistry] = None,
@@ -766,7 +789,8 @@ def train_and_export(
     rounds = len(result.history["calibration"])
     qnet, report = export(result.params, result.net, cfg, path=path,
                           observers=obs, verify=verify,
-                          verify_batch=verify_batch,
+                          verify_batch=verify_batch, tune=tune,
+                          tracer=tracer,
                           provenance={"final_loss": result.history["loss"][-1]
                                       if result.history["loss"] else None,
                                       "online_quant_rounds": rounds},

@@ -1,24 +1,33 @@
 """Tuning cache: measured per-op route selections as a committed artifact.
 
-Counterpart of `repro/tune/cache.py`, the part the energy model reads: the
-shape keys (`op_key`, `irb_key`), `RouteChoice`, `TunedPlan` and its JSON
-form (`load_tuned`/`save_tuned`). A cache file written by the JAX
-package's autotuner (`experiments/tuned/*.json`) loads here unchanged and
-prices the same ops. Projecting a cache onto a net's routes (`resolve`,
-`coverage`), merging caches and the autotuner itself come with `tuned=`
-serving.
+Counterpart of `repro/tune/cache.py`. A `TunedPlan` is the output of the
+route autotuner (`repro_torch.tune.autotune`): for every operator of a
+`CUPlan` — keyed by op kind, input shape, act bits and backend, NOT by op
+name — it records which bit-exact route won the measurement and the
+timings that justified it; at the block level, whether a fusable IRB runs
+the fused kernel.
 
-Keys name an op by kind, input shape, act bits and backend, NOT by op
-name, so two nets sharing an op shape resolve to the same entry, and a
-cache recorded on another backend resolves nothing.
+The route names are the JAX package's strings, so a cache written by
+either package loads in the other. In the port `int_ref` is the float64
+torch-op formulation (exact for every int8 x uint8 accumulation; the JAX
+package's int32 XLA ops), `int_f32` the float32 one, `dw_shifts` the
+shifted multiply-adds, and `pallas_pw` / `pallas_dw` / `fused_irb` mean the
+hand-written kernels K2 / K3 / K4 (`kernels/ops.py`).
+
+Shape keys make the cache portable: two nets sharing an op shape resolve
+to the same entry, and an op with no entry keeps its default route, so a
+cache can be partial, stale or empty without ever being wrong. The backend
+is part of the key and is the serving device's type (`"cuda"`, `"cpu"`;
+never JAX's `"gpu"`): a CPU cache consulted on the card resolves nothing.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import os
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Set, Tuple
 
+from repro_torch.core import compiler as CC
 from repro_torch.core import graph as G
 
 # v2: `irb_key` carries all three act bit-widths of the fused block
@@ -26,6 +35,17 @@ from repro_torch.core import graph as G
 # a heterogeneous-bit block no longer aliases a uniform-bit block. Any
 # v1 cache must be regenerated (the autotuner).
 CACHE_VERSION = 2
+
+# route identifiers (the JAX package's strings; see the module docstring)
+INT_REF = "int_ref"  # float64 torch ops (exact; XLA's int32 ops in JAX)
+INT_F32 = "int_f32"  # float32 torch ops, under the 2^24 exactness bound
+DW_SHIFTS = "dw_shifts"  # K x K shifted int32 multiply-adds (depthwise)
+PALLAS_PW = "pallas_pw"  # K2, the pointwise kernel (tile params)
+PALLAS_DW = "pallas_dw"  # K3, the depthwise kernel
+FUSED_IRB = "fused_irb"  # K4, the whole fused IRB block (block entry)
+PER_OP = "per_op"  # block entry: keep the per-op selections
+
+RouteMap = Dict[str, Tuple[str, Dict[str, int]]]
 
 
 def op_key(op: G.OpSpec, in_hw: Optional[int], backend: str,
@@ -71,7 +91,17 @@ class RouteChoice:
     us: float = 0.0  # best measured wall time of the winner
     us_ref: Optional[float] = None  # the reference route's time, if timed
     n_candidates: int = 0
-    disqualified: Tuple[str, ...] = ()  # candidates that drifted vs reference
+    disqualified: Tuple[str, ...] = ()  # candidates that drifted or raised
+
+    @property
+    def params_dict(self) -> Dict[str, int]:
+        return dict(self.params)
+
+    @staticmethod
+    def make(route: str, params: Optional[Dict[str, int]] = None,
+             **kw) -> "RouteChoice":
+        items = tuple(sorted((params or {}).items()))
+        return RouteChoice(route=route, params=items, **kw)
 
     def to_json(self) -> Dict:
         d = dataclasses.asdict(self)
@@ -97,6 +127,7 @@ class TunedPlan:
     """Measured per-op (and per-fusable-block) route selections.
 
     `entries` maps `op_key`/`irb_key` strings to the winning `RouteChoice`.
+    `resolve` projects the shape-keyed cache onto a concrete net.
     """
 
     backend: str
@@ -109,8 +140,117 @@ class TunedPlan:
         return len(self.entries)
 
     # ------------------------------------------------------------------
+    # projection onto a concrete net
+    # ------------------------------------------------------------------
+
+    def resolve(self, qnet, plan: Optional[CC.CUPlan] = None,
+                backend: Optional[str] = None) -> Tuple[RouteMap, Set[str]]:
+        """Project the cache onto `qnet` (anything with a `.spec` NetSpec,
+        or a NetSpec).
+
+        Returns (op_routes, fused_blocks): op name -> (route, params) for
+        every op with an entry on `backend`, and the fusable IRB blocks
+        whose block entry chose the fused kernel. Ops and blocks without
+        an entry are absent: callers keep the default route. `backend`
+        defaults to the device type of a prepared net, else CUDA's (which
+        must be there)."""
+        from repro_torch.kernels.ops import fusable_irb
+
+        spec = _spec_of(qnet)
+        plan = plan if plan is not None else CC.compile_net(spec)
+        backend = _backend_of(qnet, backend)
+        rank = spec.spatial_rank
+        op_routes: RouteMap = {}
+        block_in_hw: Dict[str, Optional[int]] = {}
+        for _, block, op, in_hw in plan.op_descriptors():
+            block_in_hw.setdefault(block.name, in_hw)
+            entry = self.entries.get(op_key(op, in_hw, backend, rank=rank))
+            if entry is not None:
+                op_routes[op.name] = (entry.route, entry.params_dict)
+        fused: Set[str] = set()
+        for block in spec.blocks:
+            if not fusable_irb(block):
+                continue
+            entry = self.entries.get(
+                irb_key(block, block_in_hw.get(block.name), backend))
+            if entry is not None and entry.route == FUSED_IRB:
+                fused.add(block.name)
+        return op_routes, fused
+
+    def resolve_with_defaults(
+        self, qnet, plan: Optional[CC.CUPlan] = None,
+        backend: Optional[str] = None, *,
+        op_kernels: bool = False, body_fast_path: bool = False,
+    ) -> Tuple[RouteMap, Set[str]]:
+        """`resolve`, then fill the cache's misses with the stage
+        compiler's default routes: with `op_kernels` an uncovered DW op
+        takes K3 and an uncovered PW/DENSE op K2 (2-D nets), and every SE
+        squeeze K2 (the cache keys no squeeze); with `body_fast_path` a
+        fusable Body block with no block entry takes K4 (one whose entry
+        says `per_op` was measured and stays per op). Ops left unrouted
+        run `cu.run_block`'s default formulation. An empty plan resolved
+        so is the untuned serving route (`compile_stages`)."""
+        from repro_torch.kernels.ops import fusable_irb
+
+        spec = _spec_of(qnet)
+        plan = plan if plan is not None else CC.compile_net(spec)
+        backend = _backend_of(qnet, backend)
+        op_routes, fused = self.resolve(spec, plan, backend=backend)
+        block_in_hw: Dict[str, Optional[int]] = {}
+        fill = op_kernels and spec.spatial_rank == 2
+        for _, block, op, in_hw in plan.op_descriptors():
+            block_in_hw.setdefault(block.name, in_hw)
+            if not fill:
+                continue
+            if block.se is not None and block.se_after == op.name:
+                op_routes[block.se.squeeze.name] = (PALLAS_PW, {})
+            if op.name in op_routes or op.act == G.HSIGMOID:
+                continue
+            if op.kind == G.DW:
+                op_routes[op.name] = (PALLAS_DW, {})
+            elif op.kind in (G.PW, G.DENSE):
+                op_routes[op.name] = (PALLAS_PW, {})
+        if body_fast_path:
+            for block in plan.blocks_for(CC.BODY):
+                if not fusable_irb(block) or block.name in fused:
+                    continue
+                if irb_key(block, block_in_hw.get(block.name),
+                           backend) not in self.entries:
+                    fused.add(block.name)
+        return op_routes, fused
+
+    def coverage(self, qnet, plan: Optional[CC.CUPlan] = None,
+                 backend: Optional[str] = None) -> float:
+        """Fraction of this net's tunable ops with a cache entry."""
+        spec = _spec_of(qnet)
+        plan = plan if plan is not None else CC.compile_net(spec)
+        op_routes, _ = self.resolve(spec, plan,
+                                    backend=_backend_of(qnet, backend))
+        tunable = [op for _, _, op, _ in plan.op_descriptors()
+                   if op.act != G.HSIGMOID]
+        return len(op_routes) / len(tunable) if tunable else 0.0
+
+    # ------------------------------------------------------------------
     # merge / persist
     # ------------------------------------------------------------------
+
+    def merge(self, other: "TunedPlan") -> "TunedPlan":
+        """Union of two caches; on a key collision the faster entry wins."""
+        if self.backend != other.backend:
+            raise ValueError(
+                f"cannot merge caches for different backends: "
+                f"{self.backend!r} vs {other.backend!r}")
+        entries = dict(self.entries)
+        for key, choice in other.entries.items():
+            if key not in entries or choice.us < entries[key].us:
+                entries[key] = choice
+        return TunedPlan(
+            backend=self.backend,
+            nets=tuple(sorted(set(self.nets) | set(other.nets))),
+            tuned_batch=self.tuned_batch,
+            entries=entries,
+            meta={**self.meta, **other.meta},
+        )
 
     def to_json(self) -> Dict:
         return {
@@ -140,6 +280,23 @@ class TunedPlan:
         )
 
 
+def _spec_of(qnet) -> G.NetSpec:
+    return qnet.spec if hasattr(qnet, "spec") else qnet
+
+
+def _backend_of(qnet, backend: Optional[str]) -> str:
+    """The backend a cache is read for: the caller's, else a prepared
+    net's device type, else CUDA's (`energy.default_backend`: raises
+    without a card)."""
+    if backend is not None:
+        return backend
+    device = getattr(qnet, "device", None)
+    if device is not None:
+        return device.type
+    from repro_torch.energy.power import default_backend
+    return default_backend()
+
+
 def save_tuned(plan: TunedPlan, path: str) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "w") as f:
@@ -154,6 +311,8 @@ def load_tuned(path: str) -> TunedPlan:
 
 __all__ = [
     "CACHE_VERSION",
+    "INT_REF", "INT_F32", "DW_SHIFTS", "PALLAS_PW", "PALLAS_DW",
+    "FUSED_IRB", "PER_OP",
     "op_key", "irb_key",
     "RouteChoice", "TunedPlan",
     "save_tuned", "load_tuned",

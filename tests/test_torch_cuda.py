@@ -6,7 +6,9 @@ skip-add, the 1-D convolutions (float64 and float32 `F.conv1d`), fixed-point
 `run_qnet` and the streaming engine on its full-width fixtures, each against
 the port on the CPU; then the training front end (a tiny config trained on
 the card against the CPU port, restart bitwise on the card, export proven
-bit-exact through K2-K4). Exact equality for the integer kernels and
+bit-exact through K2-K4), and the route autotuner and tuned serving (both
+golden nets and both full-width fixtures tuned on the card). Exact
+equality for the integer kernels and
 routes. The split-K, split-E, variant and determinism cases check `plan`'s
 choices through the kernels' per-variant counters.
 The float LM kernels sum in another order than their plain versions: the
@@ -1020,3 +1022,102 @@ def test_train_and_export_bit_exact_through_kernels_on_card(dev, tmp_path):
     assert report["routes"][-1] == "engine" and report["device"] == str(dev)
     cpu = cu.run_qnet(load_qnet(path), x, device="cpu").numpy()
     np.testing.assert_array_equal(report["logits"], cpu)
+
+
+# ---------------------------------------------------------------------------
+# the route autotuner and tuned serving on the card
+# ---------------------------------------------------------------------------
+
+FULL = os.path.join(os.path.dirname(__file__), "golden_torch")
+TUNE_CASES = {
+    "golden_mobilenet_v2": ("golden", "mobilenet_v2_act8", None),
+    "golden_efficientnet_compact": ("golden", "efficientnet_compact_act8",
+                                    None),
+    "full_mobilenet_v2": ("full", "mobilenet_v2_alpha1_224_act8", 224),
+    "full_efficientnet_compact": ("full", "efficientnet_compact_h128_act8",
+                                  128),
+}
+KERNEL_ROUTES = ("pallas_pw", "pallas_dw", "fused_irb")
+
+
+@pytest.fixture(scope="module", params=sorted(TUNE_CASES))
+def tuned_case(request, dev):
+    """(qnet, images, the JAX package's logits, the plan tuned on the card):
+    the golden fixtures' 2 images, the full-width fixtures' 8 (seeded as
+    `chip_smoke.images`)."""
+    from repro_torch.tune import tune_qnet
+
+    where, name, hw = TUNE_CASES[request.param]
+    base = os.path.join(GOLDEN if where == "golden" else FULL, name)
+    fix = np.load(base + ".npz")
+    q = load_qnet(base + ".qnet")
+    x = fix["input"] if hw is None else np.random.default_rng(0).uniform(
+        -1, 1, (8, hw, hw, 3)).astype(np.float32)
+    plan = tune_qnet(q, batch=len(x), device=dev, repeats=1)
+    return q, x, fix["logits"], plan
+
+
+def test_tune_on_card_writes_a_cuda_cache(tuned_case):
+    """The cache is the card's (`cuda` keys), covers the net, and no
+    kernel candidate (K2, K3, K4) was disqualified: each ran and equalled
+    the reference op."""
+    q, _, _, plan = tuned_case
+    assert plan.backend == "cuda"
+    assert all(k.endswith(":cuda") for k in plan.entries)
+    assert plan.coverage(q, backend="cuda") == 1.0
+    bad = {k: v.disqualified for k, v in plan.entries.items()
+           if any(d.startswith(KERNEL_ROUTES) for d in v.disqualified)}
+    assert bad == {}
+    assert all(v.us > 0 for v in plan.entries.values())
+
+
+def test_tuned_serving_on_card_is_bit_exact(tuned_case, dev):
+    """`VisionEngine(tuned=)` on the card: the JAX package's logits bit
+    for bit, with the K2-K4 launches the resolved routes call for."""
+    from repro_torch.core import compiler as CC
+
+    q, x, want, plan = tuned_case
+    eng = VisionEngine(q, buckets=(len(x),), device=dev, tuned=plan)
+    eng.warmup()
+    rids = [eng.submit(img) for img in x]
+    K.reset_launch_counts()
+    res = eng.run()
+    np.testing.assert_array_equal(np.stack([res[r].logits for r in rids]),
+                                  want)
+    st = eng.stages[0]
+    assert st.pq.routes
+    assert K.launch_counts() == K.served_launches(
+        CC.compile_net(q.spec), routes=st.pq.routes, fused=st.fused_blocks)
+
+
+@pytest.mark.parametrize("case", ["golden_mobilenet_v2",
+                                  "full_efficientnet_compact"])
+def test_cpu_cache_resolves_nothing_on_card(dev, case):
+    """A committed CPU cache resolves no route on the card: the prepared
+    net carries none, and the tuned stages fill every op with the untuned
+    card routes (K3, K2 and the SE squeezes' K2, K4), launching what the
+    untuned engine launches, with the reference logits."""
+    from repro_torch.core import compiler as CC
+    from repro_torch.core import cu
+    from repro_torch.tune import load_tuned
+
+    where, name, hw = TUNE_CASES[case]
+    base = os.path.join(GOLDEN if where == "golden" else FULL, name)
+    fix = np.load(base + ".npz")
+    x = fix["input"] if hw is None else np.random.default_rng(0).uniform(
+        -1, 1, (8, hw, hw, 3)).astype(np.float32)
+    model = case.split("_", 1)[1]
+    cache = load_tuned(os.path.join(os.path.dirname(__file__), "..",
+                                    "experiments", "tuned",
+                                    f"{model}_act8_cpu.json"))
+    q = load_qnet(base + ".qnet")
+    assert cu.prepare_qnet(q, device=dev, tuned=cache).routes == {}
+    assert cache.resolve(q, backend="cuda") == ({}, set())
+    assert cache.coverage(q, backend="cuda") == 0.0
+    eng = VisionEngine(q, buckets=(len(x),), device=dev, tuned=cache)
+    rids = [eng.submit(img) for img in x]
+    K.reset_launch_counts()
+    res = eng.run()
+    np.testing.assert_array_equal(np.stack([res[r].logits for r in rids]),
+                                  fix["logits"])
+    assert K.launch_counts() == K.served_launches(CC.compile_net(q.spec))

@@ -266,7 +266,7 @@ def test_fixed_point_refuses_kernels_on(flag):
     # "auto" serves fixed point through the reference ops
     stages = compile_stages(qnet, device=CPU, fixed_point=True,
                             **{flag: "auto"})
-    assert not any(st._fast_path or st._op_kernels for st in stages)
+    assert not any(st.pq.routes or st.fused_blocks for st in stages)
 
 
 def test_residual_consts_prepared_once_match_jax():

@@ -287,8 +287,8 @@ _VISION_QNETS = [os.path.join(_ROOT, "golden_torch",
 
 def _pw_launches(spec: G.NetSpec, batch: int):
     """(m, k, n) of every pointwise-kernel launch of the per-op route
-    (`ops.run_block_kernels`: PW/DENSE ops but the hsigmoid excite, and
-    each SE squeeze on the pooled [batch, C])."""
+    (the stage executors' default routes: PW/DENSE ops but the hsigmoid
+    excite, and each SE squeeze on the pooled [batch, C])."""
     h, shapes = spec.input_hw, []
     for block in spec.blocks:
         for op in block.ops:

@@ -1,0 +1,107 @@
+"""The port's vision serving CLI (`python -m repro_torch.launch.serve
+--vision`) on the CPU: every request served, its logits equal to the
+port's `cu.run_qnet` for the same nets (the CLI's nets come from the
+port's own `make_calibrated_qnet` draws, so they are not the JAX CLI's),
+a tuned cache written by `--tune` and served by a second run, the trace
+and metrics files, and the refusals of what is not ported."""
+from __future__ import annotations
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import cu
+from repro_torch.launch import serve as CLI
+from repro_torch.obs import validate_chrome_trace
+from repro_torch.tune import load_tuned
+
+BASE = ["--vision", "--models", "mobilenet_v2,efficientnet_compact", "--hw",
+        "32", "--batch", "4", "--device", "cpu"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's side on one intra-op thread, as the other port test files
+    under several workers: the default (every core, in each worker)
+    oversubscribes the machine."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _check_served(out, n):
+    results = out["results"]
+    assert len(results) == n and len(out["requests"]) == n
+    assert all(r.status == "ok" for r in results.values())
+    for handle, img in out["requests"]:
+        want = cu.run_qnet(out["qnets"][handle[0]], img[None],
+                           device="cpu").numpy()[0]
+        np.testing.assert_array_equal(results[handle].logits, want)
+
+
+def test_serves_every_request_bit_exact(capsys):
+    out = CLI.main(BASE + ["--requests", "6"])
+    _check_served(out, 6)
+    assert out["coverage"] == {}
+    assert {m: st.n_ok for m, st in out["stats"].items()} == {
+        "mobilenet_v2": 3, "efficientnet_compact": 3}
+    text = capsys.readouterr().out
+    assert "[serve-vision] 6/6 ok over 2 model(s) on cpu" in text
+
+
+def test_tune_writes_a_cache_a_second_run_serves(tmp_path, capsys):
+    cache = str(tmp_path / "serve_cpu.json")
+    trace, metrics = str(tmp_path / "t.json"), str(tmp_path / "m.prom")
+    out = CLI.main(BASE + ["--requests", "4", "--tune", "--tuned-cache",
+                           cache, "--trace-out", trace, "--metrics-out",
+                           metrics])
+    _check_served(out, 4)
+    assert out["coverage"] == {"mobilenet_v2": 1.0,
+                               "efficientnet_compact": 1.0}
+    plan = load_tuned(cache)
+    assert plan.backend == "cpu" and set(plan.nets) == {
+        out["qnets"][m].spec.name for m in out["qnets"]}
+    with open(trace) as f:
+        doc = json.load(f)
+    assert validate_chrome_trace(doc) == []
+    assert sum(e.get("name") == "request" and e["ph"] == "e"
+               for e in doc["traceEvents"]) == 4
+    prom = open(metrics).read()
+    assert 'serve_requests_completed_total{model="mobilenet_v2"} 2' in prom
+    text = capsys.readouterr().out
+    assert "tuned route coverage 100% (cpu)" in text
+    again = CLI.main(BASE + ["--requests", "4", "--tuned-cache", cache])
+    _check_served(again, 4)
+    assert again["coverage"] == out["coverage"]
+    assert "loaded tuning cache" in capsys.readouterr().out
+    for st in again["stats"].values():
+        assert st.energy_tuned_fraction > 0.5  # the cache priced its ops
+
+
+def test_metrics_json_snapshot(tmp_path):
+    path = str(tmp_path / "m.json")
+    CLI.main(BASE + ["--models", "mobilenet_v2", "--requests", "2",
+                     "--metrics-out", path])
+    snap = json.load(open(path))
+    assert snap["counters"][
+        'serve_requests_completed_total{model="mobilenet_v2"}'] == 2.0
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["--requests", "2"], "item 12"),
+    (BASE + ["--replicas", "2"], "item 11"),
+])
+def test_refuses_what_is_not_ported(argv, item):
+    with pytest.raises(SystemExit, match=item) as e:
+        CLI.main(argv)
+    assert e.value.code not in (0, None)
+
+
+def test_default_device_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is there")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CLI.main(["--vision", "--hw", "32", "--requests", "1"])

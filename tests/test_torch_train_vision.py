@@ -522,6 +522,39 @@ def test_cli_smoke_export_and_check(tmp_path, capsys):
     assert RQN.read_qnet_meta(path)["build"]["model"] == "mobilenet_v2"
 
 
+def test_export_tune_proves_the_tuned_engine(straight):
+    """`export(tune=True)` autotunes the exported net on the device and
+    proves `engine[tuned]` beside every untuned route; `tuned=` passes a
+    ready plan instead (here one whose every route is forced off the
+    defaults), and the tuned engine stays bit-exact."""
+    from repro_torch.tune import TunedPlan, tune_qnet
+
+    qnet, report = PV.export(straight.params, straight.net, PCFG,
+                             observers=straight.observers, tune=True,
+                             device="cpu")
+    assert report["routes"][-2:] == ["engine", "engine[tuned]"]
+    assert report["tuned_entries"] > 0
+    plan = tune_qnet(qnet, batch=2, device="cpu", measure=lambda fn, x, c: {
+        "int_ref": 0.1, "fused_irb": 0.1}.get(c.route, 1.0))
+    assert isinstance(plan, TunedPlan)
+    assert {v.route for v in plan.entries.values()} == {"int_ref",
+                                                         "fused_irb"}
+    _, again = PV.export(straight.params, straight.net, PCFG,
+                         observers=straight.observers, tuned=plan,
+                         device="cpu")
+    assert again["routes"] == report["routes"]
+    np.testing.assert_array_equal(again["logits"], report["logits"])
+
+
+def test_cli_tune_proves_the_tuned_engine(tmp_path, capsys):
+    path = str(tmp_path / "tuned.qnet")
+    assert CLI.main(["--smoke", "--device", "cpu", "--export", path,
+                     "--tune"]) == 0
+    assert "'engine', 'engine[tuned]']" in capsys.readouterr().out
+    prov = RQN.read_qnet_meta(path)["provenance"]
+    assert prov["verified_routes"][-1] == "engine[tuned]"
+
+
 def test_tiny_float_phase_is_chaotic():
     """Why the card is held against the CPU step by step on shared params
     (`repro_torch.train.parity`) and not as two trajectories: at CFG's
