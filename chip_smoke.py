@@ -165,7 +165,31 @@ last line:
      cache), then `--tuned-cache` alone (loads it); both must exit 0 with
      every request ok and 100% coverage, and the saved trace must pass
      `validate_chrome_trace`. Prints the phase's seconds;
- 12. the kernels' JSON line (with `device_ms`, `library_device_ms` and
+ 12. precision: the mixed-precision search (`repro_torch.tune.precision`)
+     at full width: MobileNetV2 alpha 1.0, 224x224, 1000 classes, 4-bit
+     weights, act widths (4, 6, 8), ladder budget 5. `ensure_coverage`
+     tunes the three uniform nets on the card (real timer, batch 8, every
+     kernel candidate; seconds a width printed); `QATFinetuneAccuracy`
+     scores each candidate on a small budget printed with it (2 float + 2
+     QAT base steps, 2 fine-tune steps a candidate, batch 8, one eval
+     batch). The front is written to
+     `smoke_out/precision/mobilenet_v2_cuda_pareto.json` and must pass
+     `check_pareto_artifact`; every point must be fully tuned and no
+     candidate disqualified. The headline mixed point (the CLI's pick) is
+     exported on the card through `export_point`, whose route proof must
+     pass, and served by `VisionEngine` on 8 images: 0 logits may differ
+     from the port's `cu.run_qnet` on the CPU over the same artifact, and
+     the launches (K4 by variant) must be what the resolved routes call
+     for. The mixed fixture `tests/golden_torch/mobilenet_v2_alpha1_224_mix468.*`
+     (Body blocks cycling act 8, 4, 6) served the same way: 0 of 8000
+     logits may differ from the JAX package's, and every stage its
+     digest. K4 on the fixture's act4 and act6 blocks and K2, K3 on
+     uniform act4 and act6 nets calibrated on the card, each call against
+     its plain version (exact), with `ms`, `device_ms` and `bound_ms`.
+     Then closed loops (2 rounds, 1.5 s, buckets 1/2/4/8) of the exported
+     net, the mixed fixture and the act8 fixture, in turns: FPS and p50,
+     no gate. Prints every point's `us_per_image` and the phase's seconds;
+ 13. the kernels' JSON line (with `device_ms`, `library_device_ms` and
      K6's `cold_device_ms` beside the keys the contract names; K2-K4's
      `launches` are the fleet run's, one micro-batch of each net), the card
      line, and
@@ -1484,9 +1508,12 @@ def tuned_launches(eng):
     return per, variants
 
 
-def tune_serve(m, q, plan, imgs, want, fix, card):
-    """A `VisionEngine(tuned=)` serves the fixture's 8 images with the
-    launch counters set to 0 just before and read just after."""
+def serve_exact(tag, q, imgs, want, stage_sha256=None, tuned=None):
+    """A `VisionEngine` (with `tuned=`, if given) serves `imgs` on the
+    card, bucket 8, with the launch counters set to 0 just before and
+    read just after: the logits must equal `want` and the K2-K4 launches
+    (K4 by variant) what the resolved routes call for; given
+    `stage_sha256`, every stage output must equal its stored digest."""
     import numpy as np
     import torch
 
@@ -1494,7 +1521,7 @@ def tune_serve(m, q, plan, imgs, want, fix, card):
     from repro_torch.kernels.fused_irb import fused_irb_q
     from repro_torch.serve.vision import VisionEngine
 
-    eng = VisionEngine(q, device="cuda", buckets=(8,), tuned=plan)
+    eng = VisionEngine(q, device="cuda", buckets=(8,), tuned=tuned)
     eng.warmup()
     rids = [eng.submit(img) for img in imgs]
     K.reset_launch_counts()
@@ -1503,24 +1530,36 @@ def tune_serve(m, q, plan, imgs, want, fix, card):
     per, per_var = tuned_launches(eng)
     logits = np.stack([res[r].logits for r in rids])
     n_diff = int(np.sum(logits != want))
-    print(f"[tune] {m}: VisionEngine(tuned=) on the card, 8 requests: "
-          f"{n_diff} of {logits.size} logits differ from the JAX package's "
-          f"run_qnet; launch counts {counts}, fused_irb_q by variant "
-          f"{variants}; the resolved routes call for "
+    widths = sorted({op.act_bits for _, op in eng.pq.spec.all_ops()})
+    print(f"{tag}: VisionEngine({'tuned=' if tuned else ''}) on the card "
+          f"(act widths {widths}), {len(rids)} requests: {n_diff} of "
+          f"{logits.size} logits differ; launch counts {counts}, "
+          f"fused_irb_q by variant {variants}; the resolved routes call for "
           f"{ {k: v for k, v in per.items() if v} }, by variant {per_var}")
     if n_diff or counts != per or variants != per_var:
-        raise SystemExit(f"[tune] {m}: tuned logits differ, or launches "
-                         f"are not the resolved routes'")
-    if fix is not None:
+        raise SystemExit(f"{tag}: logits differ, or launches are not the "
+                         f"resolved routes'")
+    if stage_sha256 is not None:
         y = torch.from_numpy(imgs).to(eng.device)
         for i, st in enumerate(eng.stages[:-1]):
             y = st.run(y)
-            if digests(y) != list(fix["stage_sha256"][i]):
-                raise SystemExit(f"[tune] {m}: tuned stage {i} "
-                                 f"({st.spec.cu}) differs from the "
-                                 f"reference's digests")
-        print(f"[tune] {m}: every tuned stage output equals the "
-              f"reference's digests")
+            if digests(y) != list(stage_sha256[i]):
+                raise SystemExit(f"{tag}: stage {i} ({st.spec.cu}) differs "
+                                 f"from the reference's digests")
+        print(f"{tag}: every stage output equals the reference's digests")
+    return counts
+
+
+def closed_loop(eng, imgs, secs: float):
+    """(FPS, p50 s) of rounds of 256 queued requests for `secs`."""
+    n, lat, t0 = 0, [], time.perf_counter()
+    while n == 0 or time.perf_counter() - t0 < secs:
+        for i in range(256):
+            eng.submit(imgs[i % len(imgs)])
+        done = [r for r in eng.run().values() if r.status == "ok"]
+        n += len(done)
+        lat += [r.latency_s for r in done]
+    return n / (time.perf_counter() - t0), statistics.median(lat), n
 
 
 def tune_loops(qnets, plans, imgs, card):
@@ -1539,17 +1578,7 @@ def tune_loops(qnets, plans, imgs, card):
         runs = {False: [], True: []}
         for pair in range(3):
             for tuned in ((True, False) if pair == 1 else (False, True)):
-                eng = engs[tuned]
-                n, lat, t0 = 0, [], time.perf_counter()
-                while n == 0 or time.perf_counter() - t0 < TUNE_LOOP_S:
-                    for i in range(256):
-                        eng.submit(imgs[m][i % len(imgs[m])])
-                    done = [r for r in eng.run().values()
-                            if r.status == "ok"]
-                    n += len(done)
-                    lat += [r.latency_s for r in done]
-                fps = n / (time.perf_counter() - t0)
-                p50 = statistics.median(lat)
+                fps, p50, n = closed_loop(engs[tuned], imgs[m], TUNE_LOOP_S)
                 runs[tuned].append((fps, p50))
                 print(f"[tune] {card}: {m} closed loop, "
                       f"{'tuned  ' if tuned else 'untuned'} (pair {pair}): "
@@ -1622,8 +1651,9 @@ def phase_tune(card):
     fixes = {m: dict(np.load(base + ".npz")) for m, (base, _) in FLEET.items()}
     plans = {m: tune_net(m, q, card) for m, q in qnets.items()}
     for m, q in qnets.items():
-        tune_serve(m, q, plans[m], imgs[m], fixes[m]["logits"],
-                   fixes[m] if m == "mobilenet_v2" else None, card)
+        serve_exact(f"[tune] {m}", q, imgs[m], fixes[m]["logits"],
+                    fixes[m]["stage_sha256"] if m == "mobilenet_v2" else None,
+                    tuned=plans[m])
     tune_loops(qnets, plans, imgs, card)
     m = "mobilenet_v2"
     t0 = time.perf_counter()
@@ -1635,6 +1665,220 @@ def phase_tune(card):
                          "engine[tuned]")
     tune_cli(card)
     print(f"[tune] {card}: phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# [precision]: the search's full-width config and its small, printed budget
+PRECISION_CFG = dict(model="mobilenet_v2", alpha=1.0, input_hw=224,
+                     num_classes=1000, bits=4, float_steps=2, qat_steps=2,
+                     batch=8, calibrate_every=0, ckpt_every=0)
+PRECISION_CHOICES = (4, 6, 8)
+PRECISION_LADDER = 5
+PRECISION_FINETUNE = 2  # QAT fine-tune steps a candidate
+PRECISION_EVAL_BATCHES = 1
+PRECISION_LOOP_S = 1.5  # a closed-loop run of [precision]
+MIX = os.path.join(ROOT, "tests", "golden_torch",
+                   "mobilenet_v2_alpha1_224_mix468")
+
+
+def precision_search(card):
+    """`search_precision` at full width on the card: `ensure_coverage`
+    tunes each uniform net there (timed a width), then the search scores
+    every candidate with `QATFinetuneAccuracy`. Fails unless the artifact
+    passes `check_pareto_artifact`, every point is fully tuned and no
+    kernel candidate was disqualified. Returns (cfg, scorer, result)."""
+    from repro_torch.core import graph as G
+    from repro_torch.energy.power import default_power_model
+    from repro_torch.train.vision import VisionTrainConfig, build_net
+    from repro_torch.tune import TunedPlan
+    from repro_torch.tune import precision as P
+
+    cfg = VisionTrainConfig(act_bits=min(PRECISION_CHOICES), **PRECISION_CFG)
+    power = default_power_model("cuda")
+    table = P.LatencyTable(TunedPlan(backend="cuda", nets=(), tuned_batch=8,
+                                     entries={}), power, "cuda")
+    base = build_net(cfg)
+    for w in PRECISION_CHOICES:
+        t0 = time.perf_counter()
+        table = P.ensure_coverage(table, [G.with_act_bits(base, w)],
+                                  batch=8, repeats=3)
+        print(f"[precision] {card}: uniform act{w} net calibrated and tuned "
+              f"on the card in {time.perf_counter() - t0:.3f} s (batch 8, "
+              f"3 repeats, every kernel candidate); the table holds "
+              f"{len(table.tuned)} keys")
+    bad = {k: ch.disqualified for k, ch in table.tuned.entries.items()
+           if ch.disqualified}
+    if bad:
+        raise SystemExit(f"[precision] candidates disqualified: {bad}")
+    scorer = P.QATFinetuneAccuracy(
+        cfg, steps=PRECISION_FINETUNE, eval_batches=PRECISION_EVAL_BATCHES,
+        device="cuda")
+    print(f"[precision] accuracy budget: base run {cfg.float_steps} float + "
+          f"{cfg.qat_steps} QAT steps at act8, {PRECISION_FINETUNE} QAT "
+          f"fine-tune steps a candidate, batch {cfg.batch}, "
+          f"{PRECISION_EVAL_BATCHES} eval batch")
+    t0 = time.perf_counter()
+    result = P.search_precision(
+        cfg, choices=PRECISION_CHOICES, tuned=table.tuned, power=power,
+        accuracy_fn=scorer, ladder_budget=PRECISION_LADDER, tune_batch=8,
+        device="cuda")
+    secs = time.perf_counter() - t0
+    path = P.write_pareto(result, P.pareto_path(
+        cfg.model, "cuda", os.path.join(OUT_DIR, "precision")))
+    for pt in result.points:
+        print(f"[precision] {card}: {pt.name} us_per_image "
+              f"{pt.us_per_image:.3f} (fps {pt.fps:.1f}) j_per_image "
+              f"{pt.j_per_image:.6g} accuracy {pt.accuracy} tuned_fraction "
+              f"{pt.tuned_fraction}{' (front)' if pt.name in result.front else ''}")
+    # the schema, the widths and the recorded front against the recomputed
+    # non-dominated set; not the three-point minimum of the JAX package's
+    # committed front: at 1000 classes this budget scores every candidate
+    # about 0 of 8, so one point can dominate every other on the remaining
+    # axes (fps, J/image; model bytes are equal)
+    P.check_pareto_artifact(path, min_points=1)
+    print(f"[precision] {card}: search {secs:.3f} s, {len(result.points)} "
+          f"points, front {list(result.front)} ({len(result.front)} "
+          f"points), savings order {result.meta['savings_order']}; "
+          f"check_pareto_artifact passed on {os.path.relpath(path, ROOT)}")
+    if any(pt.tuned_fraction != 1.0 for pt in result.points):
+        raise SystemExit("[precision] a point is not fully tuned")
+    return cfg, scorer, result
+
+
+def precision_export(card, cfg, scorer, result):
+    """The headline mixed point (the CLI's pick: the dominating mixed
+    point, else the first mixed point on the front; else the first mixed
+    point) exported on the card through its route proof. Returns the
+    artifact's path."""
+    from repro_torch.tune import precision as P
+
+    dom = P.find_domination(list(result.points))
+    name = dom[0] if dom else next(
+        (n for n in result.front if n.startswith("mix")), None)
+    if name is None:
+        name = next(p.name for p in result.points if p.uniform is None)
+        print(f"[precision] the front holds no mixed point; exporting "
+              f"{name}, the first mixed point searched")
+    point = result.point(name)
+    path = os.path.join(OUT_DIR, "precision", f"{cfg.model}_cuda_{name}.qnet")
+    t0 = time.perf_counter()
+    report = P.export_point(cfg, point, path, accuracy_impl=scorer)
+    print(f"[precision] {card}: exported {name} (widths "
+          f"{sorted(set(point.alloc.values()))}, dominates "
+          f"{dom[1] if dom else 'no uniform point'}) in "
+          f"{time.perf_counter() - t0:.3f} s, fine-tune included; route "
+          f"proof {report['routes']}; {report['artifact_bytes']} bytes")
+    if "engine" not in report["routes"]:
+        raise SystemExit("[precision] the export proof did not reach the "
+                         "engine")
+    return path
+
+
+def precision_kernels(card, mix_pq, x):
+    """K2, K3 and K4 at act4 and act6 at full-width MobileNetV2 shapes,
+    each call against its plain version (exact) and timed: K4 on the
+    mixed fixture's act4 and act6 blocks (whose inputs come quantized at
+    the neighbour block's width), K2 and K3 on the unfused ops of uniform
+    act4 and act6 nets calibrated on the card from the fixture's spec."""
+    import torch
+
+    from repro_torch.core import cu, graph as G
+    from repro_torch.models.layers import make_calibrated_qnet
+
+    spec = mix_pq.spec
+    width = {b.name: b.ops[0].act_bits for b in spec.blocks}
+    width.update({op.name: op.act_bits for _, op in spec.all_ops()})
+    calls = [(w, c) for c in main_path_calls(mix_pq, x)
+             if c[0] == "fused_irb_q" and (w := width[c[1]]) in (4, 6)]
+    for w in (4, 6):
+        q = make_calibrated_qnet(G.with_act_bits(spec, w), bits=4,
+                                 device="cuda")
+        pq = cu.prepare_qnet(q, device="cuda")
+        calls += [(w, c) for c in main_path_calls(pq, x)
+                  if c[0] != "fused_irb_q"]
+    print(f"[precision] kernels at act4 and act6 against their plain "
+          f"versions, batch 8 (tolerance: exact)")
+    sums = {}
+    for w, (name, label, kern, plain, _, (nb, _), ops, note) in calls:
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        if got.shape != want.shape or err != 0 or \
+                int(got.max()) > 2 ** w - 1:
+            raise SystemExit(f"[precision] {name}[{label}] at act{w} "
+                             f"differs from its plain version (max |err| "
+                             f"{err}) or leaves [0, {2 ** w - 1}]")
+        ms, dev_ms = time_ms(kern), time_ms(kern, device_only=True)
+        bytes_ms, ops_ms = nb / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
+        print(f"  act{w} {name}[{label}] {tuple(got.shape)}{note} "
+              f"max_abs_err={err} max={int(got.max())} ms={ms:.4f} "
+              f"device_ms={dev_ms:.4f} bound_ms={max(bytes_ms, ops_ms):.5f}")
+        r = sums.setdefault((name, w), [0, 0.0, 0.0, 0.0])
+        r[0] += 1
+        r[1] += ms
+        r[2] += dev_ms
+        r[3] += max(bytes_ms, ops_ms)
+    for (name, w), (n, ms, dev_ms, bound) in sorted(sums.items()):
+        print(f"[precision] {card}: {name} at act{w}: {n} calls, ms "
+              f"{ms:.4f}, device_ms {dev_ms:.4f}, bound_ms {bound:.5f}")
+    if {k[0] for k in sums} != {"pointwise_conv_q", "depthwise_conv_q",
+                                "fused_irb_q"} or len(sums) != 6:
+        raise SystemExit(f"[precision] not every kernel ran at act4 and "
+                         f"act6: {sorted(sums)}")
+
+
+def precision_loops(card, paths, imgs):
+    """Closed loops of each net in turns (2 rounds, PRECISION_LOOP_S each,
+    buckets 1/2/4/8): FPS and p50, reported, no gate."""
+    from repro_torch.serve.vision import VisionEngine
+
+    engs = {tag: VisionEngine.from_artifact(p, device="cuda",
+                                            buckets=(1, 2, 4, 8))
+            for tag, p in paths.items()}
+    for eng in engs.values():
+        eng.warmup()
+    runs = {tag: [] for tag in engs}
+    for rnd in range(2):
+        for tag in (list(engs) if rnd == 0 else list(reversed(engs))):
+            runs[tag].append(closed_loop(engs[tag], imgs,
+                                         PRECISION_LOOP_S)[:2])
+    for tag, r in runs.items():
+        print(f"[precision] {card}: {tag} closed loop, buckets 1/2/4/8: "
+              f"FPS {', '.join(f'{f:.1f}' for f, _ in r)}; p50 "
+              f"{', '.join(f'{p * 1e3:.3f}' for _, p in r)} ms (reported, "
+              f"no gate)")
+
+
+def phase_precision(card):
+    """The mixed-precision search at full width on the card, its headline
+    export served there, the mixed 4/6/8 fixture held against JAX, and
+    K2-K4 at act4 and act6 against their plain versions."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import cu
+    from repro_torch.core.qnet import load_qnet
+
+    t_phase = time.perf_counter()
+    imgs = images()
+    cfg, scorer, result = precision_search(card)
+    path = precision_export(card, cfg, scorer, result)
+    t0 = time.perf_counter()
+    want = cu.run_qnet(cu.prepare_qnet(load_qnet(path), device="cpu"),
+                       imgs).numpy()
+    print(f"[precision] the port's cu.run_qnet on the CPU over the exported "
+          f"artifact: {time.perf_counter() - t0:.1f} s")
+    serve_exact(f"[precision] exported {os.path.basename(path)}",
+                load_qnet(path), imgs, want)
+    fix = dict(np.load(MIX + ".npz"))
+    serve_exact("[precision] fixture mix468", load_qnet(MIX + ".qnet"), imgs,
+                fix["logits"], fix["stage_sha256"])
+    mix_pq = cu.prepare_qnet(load_qnet(MIX + ".qnet"), device="cuda")
+    precision_kernels(card, mix_pq, torch.from_numpy(imgs).to(mix_pq.device))
+    precision_loops(card, {"exported " + os.path.basename(path): path,
+                           "fixture mix468": MIX + ".qnet",
+                           "uniform8 (act8 fixture)": FIXTURE + ".qnet"},
+                    imgs)
+    print(f"[precision] {card}: phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def lm_inputs(cfg, dev):
@@ -1983,6 +2227,7 @@ def main() -> int:
     phase_fixed_point(imgs, card)
     launches = phase_fleet(card)  # the serving path: both nets
     phase_tune(card)
+    phase_precision(card)
     phase_train(card, torch.device("cuda", torch.cuda.current_device()))
     rows.update(lm_rows)
     launches.update({name: lm_launches[name] for name in lm_rows})

@@ -5,9 +5,9 @@
     save_tuned(plan, "smoke_out/my_cuda.json")
     engine = VisionEngine(qnet, tuned=load_tuned(...))  # cache lookup
 
-`python -m repro_torch.tune` tunes the golden and benchmark nets. Not
-ported yet: the mixed-precision search (`precision`, ROADMAP queue 1
-item 11).
+`python -m repro_torch.tune` tunes the golden and benchmark nets;
+`python -m repro_torch.tune --precision` runs the mixed-precision search
+(`precision.search_precision`) over the tuned timings.
 """
 from repro_torch.tune.autotune import (
     Candidate,
@@ -33,6 +33,17 @@ from repro_torch.tune.cache import (
     op_key,
     save_tuned,
 )
+from repro_torch.tune.precision import (
+    LatencyTable,
+    PrecisionPoint,
+    PrecisionResult,
+    QATFinetuneAccuracy,
+    check_pareto_artifact,
+    export_point,
+    pareto_front,
+    search_precision,
+    write_pareto,
+)
 
 __all__ = [
     "Candidate",
@@ -55,4 +66,13 @@ __all__ = [
     "load_tuned",
     "op_key",
     "save_tuned",
+    "LatencyTable",
+    "PrecisionPoint",
+    "PrecisionResult",
+    "QATFinetuneAccuracy",
+    "check_pareto_artifact",
+    "export_point",
+    "pareto_front",
+    "search_precision",
+    "write_pareto",
 ]

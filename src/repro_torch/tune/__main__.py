@@ -17,13 +17,26 @@ Counterpart of `python -m repro.tune`:
     # the energy-delay-product objective: files gain an `_edp` suffix
     PYTHONPATH=src python -m repro_torch.tune --golden --objective edp
 
+    # mixed-precision search (`precision.search_precision`): per-block
+    # act-bit allocation over the tuned timings, a Pareto artifact
+    # (default `smoke_out/precision/{model}_{backend}_pareto.json`);
+    # --precision-export also writes the headline mixed allocation as a
+    # .qnet proven on every serving route
+    PYTHONPATH=src python -m repro_torch.tune --precision --hw 32 \
+        --num-classes 10 --choices 4,6,8
+    PYTHONPATH=src python -m repro_torch.tune --precision --fake \
+        --device cpu --out /tmp/p.json --precision-export /tmp/p.qnet
+    PYTHONPATH=src python -m repro_torch.tune --check-pareto \
+        experiments/precision/mobilenet_v2_cpu_pareto.json
+
 Caches are keyed by backend, the device's type: a run on the card writes
 `cuda` caches, `--device cpu` writes `cpu` ones (the filenames carry it).
-Without `--device` the tuner runs on CUDA and fails where there is no card.
-Files go to `--out-dir` (default `smoke_out/tuned/`, which git ignores),
-never over the JAX package's caches in `experiments/tuned/`. Not ported yet, refused
-with a non-zero exit: `--precision` and `--check-pareto` (the
-mixed-precision search, ROADMAP queue 1 item 11).
+Without `--device` the tuner and the search run on CUDA and fail where
+there is no card. Files go to `--out-dir` (default `smoke_out/tuned/`,
+which git ignores), never over the JAX package's caches in
+`experiments/tuned/`; the search seeds its latency table from those caches
+of its backend (`experiments/tuned/{model}_act*_{backend}.json`; there is
+no `cuda` one, so on the card every key is timed there).
 """
 from __future__ import annotations
 
@@ -33,6 +46,7 @@ import os
 import sys
 
 OUT_DIR = os.path.join("smoke_out", "tuned")
+TUNED_DIR = os.path.join("experiments", "tuned")  # the JAX package's caches
 GOLDEN_DIR = os.path.join("tests", "golden")
 
 # the golden fixtures of tests/golden/ (written by the JAX package): input
@@ -152,6 +166,82 @@ def tune_custom(args) -> str:
     return out
 
 
+def tune_precision(args) -> str:
+    """The mixed-precision search (`repro_torch.tune.precision`). Returns
+    the artifact's path."""
+    import glob
+
+    from repro_torch.core.cu import resolve_device
+    from repro_torch.train.vision import VisionTrainConfig
+    from repro_torch.tune import load_tuned
+    from repro_torch.tune import precision as P
+
+    device = resolve_device(args.device)
+    backend = device.type
+    choices = tuple(int(c) for c in args.choices.split(","))
+    model = (args.models or "mobilenet_v2").split(",")[0].strip()
+    if args.fake:
+        # tiny but non-zero training budget: the search scores with
+        # fake_accuracy, but --precision-export still fine-tunes and
+        # proves every route through the real QAT and export path
+        cfg = VisionTrainConfig(model=model, input_hw=8, num_classes=4,
+                                bits=args.bits, act_bits=min(choices),
+                                float_steps=6, qat_steps=4,
+                                calibrate_every=0, ckpt_every=0, batch=8)
+        measure, accuracy_fn, tuned = P.fake_measure, P.fake_accuracy, None
+    else:
+        cfg = VisionTrainConfig(
+            model=model, input_hw=args.hw, num_classes=args.num_classes,
+            bits=args.bits, act_bits=min(choices),
+            float_steps=args.float_steps, qat_steps=args.qat_steps,
+            batch=args.batch)
+        measure, accuracy_fn = None, None
+        tuned = None
+        # seed the latency table from every committed cache of this model
+        # on this backend (the per-width `{model}_act{n}` files)
+        for p in sorted(glob.glob(os.path.join(
+                TUNED_DIR, f"{model}_act*_{backend}.json"))):
+            t = load_tuned(p)
+            tuned = t if tuned is None else tuned.merge(t)
+            print(f"[precision] seeded {len(t)} entries from {p}",
+                  file=sys.stderr)
+    result = P.search_precision(
+        cfg, choices=choices, tuned=tuned, backend=backend,
+        accuracy_fn=accuracy_fn, measure=measure,
+        ladder_budget=args.ladder_budget,
+        tune_batch=args.batch, tune_repeats=args.repeats,
+        finetune_steps=args.finetune_steps,
+        log=lambda s: print(s, file=sys.stderr), device=device)
+    out = args.out or P.pareto_path(model, backend)
+    P.write_pareto(result, out)
+    dom = P.find_domination(list(result.points))
+    print(f"[precision] {len(result.points)} points, front: "
+          f"{', '.join(result.front)} -> {out}")
+    if dom:
+        m, u = dom
+        print(f"[precision] {m} dominates {u} on (latency, model_bytes) "
+              f"at >= accuracy")
+    if args.precision_export:
+        # headline = the dominating mixed point if one exists, else the
+        # first mixed allocation on the front (the export must exercise a
+        # heterogeneous net), else the front's head
+        name = dom[0] if dom else next(
+            (n for n in result.front if n.startswith("mix")),
+            result.front[0])
+        best = result.point(name)
+        impl = None
+        if args.fake:
+            # the export still goes through the real proof: only the
+            # search's scoring was faked
+            impl = P.QATFinetuneAccuracy(cfg, steps=0, device=device)
+        report = P.export_point(cfg, best, args.precision_export,
+                                accuracy_impl=impl, device=device)
+        print(f"[precision] exported {best.name} -> "
+              f"{args.precision_export} (routes: "
+              f"{', '.join(report.get('routes', []))})")
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.tune")
     ap.add_argument("--golden", action="store_true",
@@ -159,9 +249,23 @@ def main(argv=None) -> None:
     ap.add_argument("--bench", action="store_true",
                     help="tune the benchmark nets into one merged cache")
     ap.add_argument("--precision", action="store_true",
-                    help="mixed-precision search (not ported yet)")
+                    help="per-block mixed-precision search over the tuned "
+                         "timings (writes a Pareto artifact)")
+    ap.add_argument("--choices", default="4,6,8",
+                    help="act-bit widths the precision search draws from")
+    ap.add_argument("--float-steps", type=int, default=40)
+    ap.add_argument("--qat-steps", type=int, default=20)
+    ap.add_argument("--ladder-budget", type=int, default=5,
+                    help="mixed candidates per savings ladder")
+    ap.add_argument("--finetune-steps", type=int, default=10,
+                    help="QAT fine-tune steps per candidate allocation")
+    ap.add_argument("--fake", action="store_true",
+                    help="deterministic fake measure + accuracy (tests)")
+    ap.add_argument("--precision-export", default=None, metavar="PATH",
+                    help="also export the headline allocation as a .qnet "
+                         "(every serving route proven first)")
     ap.add_argument("--check-pareto", default=None, metavar="PATH",
-                    help="schema-check a Pareto artifact (not ported yet)")
+                    help="schema-check a Pareto artifact and exit")
     ap.add_argument("--models", default=None,
                     help="comma-separated models for an ad-hoc tune (with "
                          "--golden: a filter)")
@@ -176,22 +280,26 @@ def main(argv=None) -> None:
                     help="route ranking metric: measured latency (default) "
                          "or energy-delay product")
     ap.add_argument("--out", default=None,
-                    help="the ad-hoc tune's file")
+                    help="the ad-hoc tune's file, or the Pareto artifact")
     ap.add_argument("--out-dir", default=OUT_DIR)
     ap.add_argument("--device", default=None,
                     help="torch device (default: CUDA, which must exist)")
     ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args(argv)
 
-    if args.precision or args.check_pareto:
-        raise SystemExit(
-            "python -m repro_torch.tune: the mixed-precision search "
-            "(--precision, --check-pareto) is not ported yet (ROADMAP "
-            "queue 1 item 11)")
-    if not (args.golden or args.bench or args.models):
-        ap.error("pick at least one of --golden / --bench / --models")
+    if args.check_pareto:
+        from repro_torch.tune import precision as P
+        P.check_pareto_artifact(args.check_pareto)
+        print(f"[precision] OK {args.check_pareto}")
+        return
+    if not (args.precision or args.golden or args.bench or args.models):
+        ap.error("pick at least one of --golden / --bench / --models "
+                 "/ --precision / --check-pareto")
     from repro_torch.core.cu import resolve_device
     resolve_device(args.device)  # no card and no --device: raise first
+    if args.precision:
+        tune_precision(args)
+        return
     if args.golden:
         tune_golden(args)
     if args.bench:

@@ -6,8 +6,10 @@ skip-add, the 1-D convolutions (float64 and float32 `F.conv1d`), fixed-point
 `run_qnet` and the streaming engine on its full-width fixtures, each against
 the port on the CPU; then the training front end (a tiny config trained on
 the card against the CPU port, restart bitwise on the card, export proven
-bit-exact through K2-K4), and the route autotuner and tuned serving (both
-golden nets and both full-width fixtures tuned on the card). Exact
+bit-exact through K2-K4), the route autotuner and tuned serving (both
+golden nets and both full-width fixtures tuned on the card), and the
+mixed-precision search (a small search timed on the card, its mixed export
+served there equal to the CPU). Exact
 equality for the integer kernels and
 routes. The split-K, split-E, variant and determinism cases check `plan`'s
 choices through the kernels' per-variant counters.
@@ -1121,3 +1123,72 @@ def test_cpu_cache_resolves_nothing_on_card(dev, case):
     np.testing.assert_array_equal(np.stack([res[r].logits for r in rids]),
                                   fix["logits"])
     assert K.launch_counts() == K.served_launches(CC.compile_net(q.spec))
+
+
+# ---------------------------------------------------------------------------
+# the mixed-precision search on the card
+# ---------------------------------------------------------------------------
+
+PRECISION_CFG = dict(model="mobilenet_v2", alpha=0.35, input_hw=32,
+                     num_classes=10, bits=4, act_bits=4, float_steps=2,
+                     qat_steps=2, batch=8, calibrate_every=0, ckpt_every=0)
+
+
+@pytest.fixture(scope="module")
+def precision_case(dev):
+    """A small search on the card: `fake_accuracy`, the real timer (every
+    kernel candidate), ladder budget 3."""
+    from repro_torch.train.vision import VisionTrainConfig
+    from repro_torch.tune import precision as P
+
+    cfg = VisionTrainConfig(**PRECISION_CFG)
+    result = P.search_precision(cfg, choices=(4, 6, 8), ladder_budget=3,
+                                accuracy_fn=P.fake_accuracy, device=dev)
+    return cfg, result
+
+
+def test_precision_search_on_card_is_fully_timed(precision_case, tmp_path):
+    from repro_torch.tune import precision as P
+
+    _, result = precision_case
+    assert result.backend == "cuda" and result.tuned_batch == 8
+    assert {p.tuned_fraction for p in result.points} == {1.0}
+    assert all(p.us_per_image > 0 for p in result.points)
+    path = P.write_pareto(result, str(tmp_path / "p.json"))
+    # the schema and the recorded front; how many points the front keeps
+    # depends on the card's timings, not on the code
+    assert P.check_pareto_artifact(path, min_points=1)["backend"] == "cuda"
+
+
+def test_precision_export_on_card_serves_as_the_cpu(precision_case, dev,
+                                                     tmp_path):
+    """A mixed point exported on the card (its route proof through K2-K4)
+    and served by `VisionEngine` there: the port's CPU `run_qnet` over the
+    same artifact bit for bit, launching what the resolved routes call
+    for."""
+    from repro_torch.core import compiler as CC
+    from repro_torch.core import cu
+    from repro_torch.tune import precision as P
+
+    cfg, result = precision_case
+    point = next(p for p in result.points if p.uniform is None)
+    path = str(tmp_path / "mixed.qnet")
+    report = P.export_point(cfg, point, path, device=dev,
+                            accuracy_impl=P.QATFinetuneAccuracy(
+                                cfg, steps=1, eval_batches=1, device=dev))
+    assert report["routes"][-1] == "engine" and report["device"] == str(dev)
+    q = load_qnet(path)
+    assert len({op.act_bits for _, op in q.spec.all_ops()}) > 1
+    x = np.random.default_rng(0).uniform(-1, 1, (8, 32, 32, 3)).astype(
+        np.float32)
+    eng = VisionEngine(q, buckets=(8,), device=dev)
+    eng.warmup()
+    rids = [eng.submit(img) for img in x]
+    K.reset_launch_counts()
+    res = eng.run()
+    np.testing.assert_array_equal(
+        np.stack([res[r].logits for r in rids]),
+        cu.run_qnet(q, x, device="cpu").numpy())
+    st = eng.stages[0]
+    assert K.launch_counts() == K.served_launches(
+        CC.compile_net(q.spec), routes=st.pq.routes, fused=st.fused_blocks)

@@ -1,9 +1,14 @@
-"""Full-width MobileNetV2 (alpha 1.0, 224x224x3, 1000 classes, act8) and the
-full-size compact EfficientNet (H=128, 1000 classes, act8) through the
-PyTorch port, against the JAX package's `cu.run_qnet` logits.
+"""Full-width MobileNetV2 (alpha 1.0, 224x224x3, 1000 classes, act8), the
+same net mixed 4/6/8-bit, and the full-size compact EfficientNet (H=128,
+1000 classes, act8) through the PyTorch port, against the JAX package's
+`cu.run_qnet` logits.
 
-The fixtures `tests/golden_torch/mobilenet_v2_alpha1_224_act8.{qnet,npz}`
-and `tests/golden_torch/efficientnet_compact_h128_act8.{qnet,npz}` freeze
+The fixtures `tests/golden_torch/mobilenet_v2_alpha1_224_act8.{qnet,npz}`,
+`tests/golden_torch/mobilenet_v2_alpha1_224_mix468.{qnet,npz}` (4-bit
+weights; the Body blocks' activations cycle 8, 4, 6 block by block through
+`repro.tune.precision.block_allocation`, so every change of width falls on
+some block boundary; stem, tail and classifier at 8) and
+`tests/golden_torch/efficientnet_compact_h128_act8.{qnet,npz}` freeze
 each quantized net and the JAX reference's answers on 8 images:
 
   * `logits` [8, 1000] float32 — `repro.core.cu.run_qnet` on the images,
@@ -17,6 +22,7 @@ package:
 
     PYTHONPATH=src python -m tests.test_torch_fullwidth --regen
     PYTHONPATH=src python -m tests.test_torch_fullwidth --regen efficientnet_compact
+    PYTHONPATH=src python -m tests.test_torch_fullwidth --regen mobilenet_v2_mix468
 
 At this size the JAX fused-IRB formula drifts from `run_qnet` (ROADMAP F4),
 so the CPU test below, which runs the port's plain fused-IRB version on all
@@ -39,9 +45,15 @@ BUILD = {"model": "mobilenet_v2", "alpha": 1.0, "input_hw": 224, "bits": 8,
 EFFNET_BASE = os.path.join(FIXTURE_DIR, "efficientnet_compact_h128_act8")
 EFFNET_BUILD = {"model": "efficientnet_compact", "input_hw": 128, "bits": 8,
                 "num_classes": 1000}
+MIX_BASE = os.path.join(FIXTURE_DIR, "mobilenet_v2_alpha1_224_mix468")
+# the Body blocks' widths cycle through MIX_CYCLE; the rest stay at act_bits
+MIX_BUILD = {"model": "mobilenet_v2", "alpha": 1.0, "input_hw": 224,
+             "bits": 4, "num_classes": 1000, "act_bits": 8}
+MIX_CYCLE = (8, 4, 6)
 # net -> (fixture path without extension, build record)
 FIXTURES = {"mobilenet_v2": (BASE, BUILD),
-            "efficientnet_compact": (EFFNET_BASE, EFFNET_BUILD)}
+            "efficientnet_compact": (EFFNET_BASE, EFFNET_BUILD),
+            "mobilenet_v2_mix468": (MIX_BASE, MIX_BUILD)}
 N_IMAGES = 8
 
 
@@ -67,10 +79,20 @@ def regen(name: str = "mobilenet_v2") -> None:
     from repro.models.layers import make_calibrated_qnet
 
     base, build = FIXTURES[name]
-    kw = {k: v for k, v in build.items() if k != "model"}
-    net = {"mobilenet_v2": mnv2.build,
-           "efficientnet_compact": effn.build_compact}[name](**kw)
-    qnet = make_calibrated_qnet(net, bits=8, seed=0)
+    if name == "mobilenet_v2_mix468":
+        from repro.tune.precision import block_allocation
+
+        uniform = Q.build_netspec(build)
+        body = [b.name for b in uniform.blocks if b.name.startswith("irb")]
+        build = dict(build, op_act_bits=block_allocation(
+            uniform, {n: MIX_CYCLE[i % len(MIX_CYCLE)]
+                      for i, n in enumerate(body)}))
+        net = Q.build_netspec(build)
+    else:
+        kw = {k: v for k, v in build.items() if k != "model"}
+        net = {"mobilenet_v2": mnv2.build,
+               "efficientnet_compact": effn.build_compact}[name](**kw)
+    qnet = make_calibrated_qnet(net, bits=build["bits"], seed=0)
     os.makedirs(FIXTURE_DIR, exist_ok=True)
     qnet_path, npz_path = base + ".qnet", base + ".npz"
     Q.save_qnet(qnet, qnet_path, build=build,
@@ -177,6 +199,39 @@ def test_fullwidth_efficientnet_engine_equals_reference_logits(
     head = eng.stages[0].run(torch.from_numpy(x))
     assert stage_digests(head.numpy()) == list(
         effnet_fixture["stage_sha256"][0][:2])
+
+
+@pytest.fixture(scope="module")
+def mix_fixture():
+    fix = np.load(MIX_BASE + ".npz")
+    return {k: fix[k] for k in fix.files}
+
+
+def test_fullwidth_mixed_widths_run_qnet_equals_reference_logits(
+        mix_fixture):
+    """The mixed 4/6/8 net (each Body block's input quantized at its
+    neighbour's width): the port's `run_qnet` on all 8 images, 0 of 8000
+    logits apart from the JAX package's, and every stage digest equal."""
+    from repro_torch.core import compiler as CC, cu, graph as G, qnet as Q
+
+    qnet = Q.load_qnet(MIX_BASE + ".qnet")
+    widths = [b.ops[0].act_bits for b in qnet.spec.blocks
+              if b.name.startswith("irb")]
+    assert widths == [MIX_CYCLE[i % 3] for i in range(len(widths))]
+    assert {op.act_bits for _, op in qnet.spec.all_ops()} == {4, 6, 8}
+    assert all(len({op.act_bits for op in b.ops}) == 1
+               for b in qnet.spec.blocks)
+    assert G.op_act_bits(qnet.spec)["stem/conv"] == 8
+    pq = cu.prepare_qnet(qnet, device="cpu")
+    x = images()
+    np.testing.assert_array_equal(cu.run_qnet(pq, x).numpy(),
+                                  mix_fixture["logits"])
+    s, z = cu.input_qparams(pq)
+    y = cu.quantize_input(torch.from_numpy(x), pq.input_scale, z)
+    for i, sig in enumerate(CC.compile_net(pq.spec).stage_signatures()):
+        y, s, z = cu.run_blocks(y, sig.blocks, pq, s, z)
+        assert stage_digests(y.numpy()) == list(
+            mix_fixture["stage_sha256"][i]), f"stage {i} ({sig.cu}) differs"
 
 
 if __name__ == "__main__":

@@ -694,13 +694,15 @@ def test_tune_cli_golden_writes_caches_both_packages_load(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv", [["--precision"], ["--check-pareto", "x"],
                                   ["--golden"]])
-def test_tune_cli_refuses_what_is_not_ported_or_not_there(argv):
-    if argv == ["--golden"]:
-        if torch.cuda.is_available():
-            pytest.skip("a card is there")
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            TUNE_CLI.main(argv)
+def test_tune_cli_refuses_what_is_not_ported_or_not_there(argv, tmp_path):
+    """No card and no `--device`: the tuner and the search raise; a Pareto
+    artifact that is not there fails its check. (The mixed-precision
+    search is ported: `tests/test_torch_precision.py` drives it.)"""
+    if argv[0] == "--check-pareto":
+        with pytest.raises(FileNotFoundError):
+            TUNE_CLI.main(["--check-pareto", str(tmp_path / argv[1])])
         return
-    with pytest.raises(SystemExit, match="item 11") as e:
+    if torch.cuda.is_available():
+        pytest.skip("a card is there")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         TUNE_CLI.main(argv)
-    assert e.value.code not in (0, None)
