@@ -67,6 +67,33 @@ last line:
      call's device time alone, as in phase 3; K6 also `cold_device_ms`,
      its device time with the L2 cache flushed before each call (the int8
      caches fit in the 50 MB L2, so a warm call can beat the HBM bound);
+  6a. lm_serve: LM serving through the port's `Engine` (`serve/engine.py`)
+     and model (`models/lm/`), which launch none of K2-K6 (the JAX LM
+     dequantizes and multiplies, and attends over the dequantized cache):
+     the launch counters are set to 0 at the phase's start and must read 0
+     at its end. The serving CLI (`launch/serve.py`) at its defaults on
+     full-width Llama-3.2-1B (16 layers, d_model 2048, 32 / 8 heads, d_ff
+     8192, vocab 128256 padded to 128512, tied, bf16, seeded weights): 8
+     requests of 16 tokens, all in range, its tok/s. The Engine's three
+     properties (`tests/test_serve_engine.py`) at full width in bf16, W8,
+     W4 and with the int8 KV cache: equal to a manual prefill-and-decode
+     loop at 1 slot and at 4 slots with 6 requests, and one prompt's tokens
+     equal across two batches; each prints prefill ms (4 x 12 tokens) and
+     decode ms a step at 4 slots (median of 25, CUDA events, host
+     included) beside the bound of reading every weight once at 3.35
+     TB/s, and the bf16 decode step its device busy share under
+     torch.profiler. The cache path against `forward_train` on the
+     16-layer model in f32 (TF32 off; max abs err LM_CACHE_ATOL). The
+     published widths cut to 2 layers, f32, numpy-seeded weights
+     (`tests/torch_lm_cases.py`): the card's prefill and 8 greedy steps
+     against the port's on the CPU and both against the JAX golden
+     `tests/golden_torch/llama32_1b_serve.npz` (LM_SERVE_TOL, tokens
+     exact). The nine other archs at `reduced_config` in f32, prefill and
+     8 decode steps on the card against the CPU (LM_SERVE_TOL); mamba2-1.3b
+     and recurrentgemma-2b also at their published widths and depths in
+     f32: prefill and 4 greedy steps on the card, finite, the prefill and
+     first step against the CPU (LM_SERVE_TOL), and a decode step's ms.
+     Peak memory and the phase's seconds;
   7. stream: `StreamEngine` on `cuda` serves the full-width keyword-spotting
      DS-CNN (`build_kws()` defaults: 49 frames x 10 MFCC, 64 channels, 4
      DS blocks, act8; `tests/torch_stream_cases.py`) at hop 4: 64 sessions
@@ -2132,6 +2159,418 @@ def phase_lm(card):
     return rows, counts
 
 
+LM_SERVE_GOLDEN = os.path.join(ROOT, "tests", "golden_torch",
+                               "llama32_1b_serve.npz")
+# (rtol, atol) of the [lm_serve] checks between two f32 runs: the card
+# against the CPU (cuBLAS and the CPU's BLAS sum in other orders) and both
+# against the JAX golden (tests/test_torch_lm_engine.py's GOLDEN_TOL)
+LM_SERVE_TOL = (1e-4, 1e-4)
+LM_CACHE_ATOL = 1e-4  # prefill + decode against forward_train, f32, 16 layers
+LM_ARCH_STEPS = 8  # decode steps of each reduced arch, card against CPU
+LM_FULL_ARCHS = ("mamba2-1.3b", "recurrentgemma-2b")  # also at full width
+LM_FULL_STEPS = 4  # greedy decode steps of each on the card
+
+
+def lm_manual(params, cfg, prompts, max_new, max_len):
+    """A batch's greedy tokens by a plain prefill-and-decode loop (prompts
+    of one length, so no padding)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.lm import model as M
+
+    dev = params["embed"].device
+    with torch.inference_mode():
+        tokens = torch.from_numpy(np.stack(prompts)).long().to(dev)
+        logits, cache = M.prefill(params, cfg, tokens, max_len=max_len)
+        cur = torch.argmax(logits[:, 0], -1)
+        out = [cur]
+        for t in range(max_new - 1):
+            logits, cache = M.decode_step(params, cfg, cur[:, None], cache,
+                                          tokens.shape[1] + t)
+            cur = torch.argmax(logits[:, 0], -1)
+            out.append(cur)
+    return torch.stack(out, 1).cpu().tolist()
+
+
+def lm_engine_checks(tag, cfg, params, rng):
+    """test_serve_engine.py's three properties at full width on the card:
+    the Engine against a manual loop at 1 slot and at 4 slots with 6
+    requests (two batches), and one prompt's tokens across two batches."""
+    from repro_torch.serve.engine import Engine, Request
+
+    def serve(slots, prompts, max_new):
+        eng = Engine(cfg, params, batch_slots=slots, max_len=128,
+                     device=params["embed"].device)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new=max_new))
+        done = eng.run()
+        return [done[i] for i in range(len(prompts))]
+
+    def prompt():
+        return rng.integers(0, cfg.vocab, 12).astype("int32")
+
+    bad = []
+    one = [prompt()]
+    if serve(1, one, 8) != lm_manual(params, cfg, one, 8, 128):
+        bad.append("1 slot")
+    six = [prompt() for _ in range(6)]
+    want = (lm_manual(params, cfg, six[:4], 6, 128)
+            + lm_manual(params, cfg, six[4:], 6, 128))
+    if serve(4, six, 6) != want:
+        bad.append("4 slots, 6 requests")
+    p, other = prompt(), prompt()
+    a = serve(2, [p, other], 6)
+    b = serve(2, [p, other[::-1].copy()], 6)
+    if a[0] != b[0]:
+        bad.append("same prompt across batches")
+    print(f"[lm_serve] {tag}: Engine vs manual loop at 1 slot and at 4 slots "
+          f"(6 requests), same prompt across batches: "
+          f"{'equal' if not bad else 'DIFFERENT: ' + ', '.join(bad)}")
+    return [f"{tag} {b}" for b in bad]
+
+
+def lm_times(tag, cfg, params, card):
+    """Prefill ms (4 x 12 tokens) and decode ms a step at 4 slots (CUDA
+    events, median of REPS, host included), against the bound of reading
+    every weight once at 3.35 TB/s."""
+    import torch
+
+    from repro_torch.models.lm import model as M
+
+    dev = params["embed"].device
+    tokens = torch.randint(0, cfg.vocab, (4, 12), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(
+                               0))
+    with torch.inference_mode():
+        _, cache = M.prefill(params, cfg, tokens, max_len=128)
+        tok = tokens[:, -1:]
+        pre_ms = time_ms(lambda: M.prefill(params, cfg, tokens, max_len=128))
+        dec_ms = time_ms(lambda: M.decode_step(params, cfg, tok, cache, 12))
+    wbytes = sum(t.numel() * t.element_size()
+                 for t in _leaves(params))
+    bound = wbytes / HBM_BYTES_PER_S * 1e3
+    print(f"[lm_serve] {tag}: prefill (4 x 12 tokens) {pre_ms:.4f} ms, "
+          f"decode step (4 slots, position 12) {dec_ms:.4f} ms; weights "
+          f"{wbytes / 1e9:.4f} GB, read once at 3.35 TB/s: {bound:.4f} ms "
+          f"(decode at {bound / dec_ms:.4f} of that bound); {card}")
+    return dec_ms, tok, cache
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def lm_decode_profile(cfg, params, tok, cache, steps: int = 10):
+    """Device busy share of `steps` decode steps under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from repro_torch.models.lm import model as M
+
+    torch.cuda.synchronize()
+    with torch.inference_mode(), tprofile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            M.decode_step(params, cfg, tok, cache, 12)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = [(evt.self_device_time_total / 1e3, evt.count, evt.key)
+           for evt in prof.key_averages()
+           if evt.device_type == DeviceType.CUDA]
+    busy = busy_ms(prof.events())
+    if not dev or busy <= 0:
+        print("[lm_serve] torch.profiler reported no device time: busy "
+              "share not measured")
+        return
+    n = sum(c for _, c, _ in dev)
+    print(f"[lm_serve] bf16 decode step at 4 slots, {steps} steps under "
+          f"torch.profiler: wall {wall_ms / steps:.4f} ms a step, device "
+          f"busy {busy / steps:.4f} ms a step ({n / steps:.1f} device "
+          f"intervals a step), busy share {busy / wall_ms:.4f}")
+    for d, c, key in sorted(dev, reverse=True)[:6]:
+        print(f"[lm_serve]   {d / steps:9.4f} ms {c // steps:5d}x  "
+              f"{key[:80]}")
+
+
+def lm_cache_vs_forward(cfg, dev, rng):
+    """`cfg` (full-width Llama-3.2-1B, 16 layers) in f32, TF32 off: prefill
+    of 8 tokens plus 8 teacher-forced decode steps against forward_train."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.lm import model as M
+
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    params, _ = M.init_params(cfg, 1, device=dev)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16))).to(
+        params["embed"].device)
+    with torch.inference_mode():
+        full, _ = M.forward_train(params, cfg, tokens)
+        logits, cache = M.prefill(params, cfg, tokens[:, :8], max_len=16)
+        errs = [float((logits[:, 0] - full[:, 7]).abs().max())]
+        for t in range(8, 16):
+            logits, cache = M.decode_step(params, cfg, tokens[:, t:t + 1],
+                                          cache, t)
+            errs.append(float((logits[:, 0] - full[:, t]).abs().max()))
+    del params, full, cache
+    print(f"[lm_serve] cache path vs forward_train, {cfg.name} "
+          f"{cfg.n_layers} layers f32 (TF32 off), prefill 8 + 8 decode "
+          f"steps: max abs err "
+          f"{max(errs):.3g} at each position "
+          f"{' '.join(f'{e:.3g}' for e in errs)} (bound {LM_CACHE_ATOL})")
+    return [] if max(errs) <= LM_CACHE_ATOL else [
+        f"cache path vs forward: {max(errs):.3g} > {LM_CACHE_ATOL}"]
+
+
+def lm_golden_checks(dev):
+    """Llama-3.2-1B widths, 2 layers, f32, numpy-seeded weights
+    (tests/torch_lm_cases.py): the card's prefill and greedy decode against
+    the port's on the CPU, and both against the JAX golden."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import llama32_1b
+    from repro_torch.models.lm import model as M
+
+    C = lm_cases()
+    cfg = dataclasses.replace(llama32_1b.get_config(),
+                              n_layers=C.SERVE_LAYERS, dtype="float32")
+    cpu_params = M.tree_map(torch.from_numpy, C.serve_params(cfg))
+    prompts = C.serve_prompts(cfg)
+    ids = C.serve_vocab_ids(cfg)
+    runs = {}
+    for where in (dev.type, "cpu"):
+        params = M.tree_map(lambda t: t.to(where), cpu_params)
+        with torch.inference_mode():
+            tok = torch.from_numpy(prompts).long().to(where)
+            logits, cache = M.prefill(params, cfg, tok,
+                                      max_len=C.SERVE_MAX_LEN)
+            steps = [logits[:, 0].cpu()]
+            toks = [torch.argmax(logits[:, 0], -1)]
+            for t in range(C.SERVE_NEW):
+                logits, cache = M.decode_step(params, cfg, toks[-1][:, None],
+                                              cache, C.SERVE_PROMPT + t)
+                steps.append(logits[:, 0].cpu())
+                toks.append(torch.argmax(logits[:, 0], -1))
+        runs[where] = (torch.stack([t.cpu() for t in toks], 1).numpy(),
+                       torch.stack(steps).numpy())
+        del params, cache
+    gold = dict(np.load(LM_SERVE_GOLDEN))
+    rtol, atol = LM_SERVE_TOL
+    bad = []
+    (ct, cl), (pt, pl) = runs[dev.type], runs["cpu"]
+    err = float(np.abs(cl - pl).max())
+    if not np.array_equal(ct, pt) or not np.allclose(cl, pl, rtol, atol):
+        bad.append(f"card vs CPU (tokens equal {np.array_equal(ct, pt)}, "
+                   f"max abs err {err:.3g})")
+    gerr = 0.0
+    for where, (toks, lg) in runs.items():
+        top = np.take_along_axis(lg, toks.T[:, :, None], axis=2)[..., 0]
+        sub = lg[:, :, ids]
+        gerr = max(gerr, float(np.abs(sub - gold["logits_at_ids"]).max()),
+                   float(np.abs(top - gold["top_logit"]).max()))
+        if not (np.array_equal(toks, gold["tokens"])
+                and np.allclose(sub, gold["logits_at_ids"], rtol, atol)
+                and np.allclose(top, gold["top_logit"], rtol, atol)):
+            bad.append(f"{where} vs the JAX golden")
+    print(f"[lm_serve] Llama-3.2-1B widths, {C.SERVE_LAYERS} layers, f32: "
+          f"card vs CPU max abs err {err:.3g} over {cl.size} logits, greedy "
+          f"tokens {'equal' if np.array_equal(ct, pt) else 'DIFFERENT'}; "
+          f"both vs the JAX golden max abs err {gerr:.3g} (rtol {rtol}, "
+          f"atol {atol}), tokens {ct.tolist()}")
+    return bad
+
+
+def lm_archs_card_vs_cpu(dev, rng):
+    """The nine other archs at reduced_config, f32: the card's prefill and
+    LM_ARCH_STEPS teacher-forced decode steps against the port's on the
+    CPU, on the same weights and inputs."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCHS, reduced_config
+    from repro_torch.models.lm import model as M
+
+    rtol, atol = LM_SERVE_TOL
+    bad = []
+    for arch in sorted(ARCHS):
+        if arch == "llama3.2-1b":
+            continue
+        cfg = dataclasses.replace(reduced_config(arch), dtype="float32")
+        params, _ = M.init_params(cfg, 0, device="cpu")
+        s = 8 + LM_ARCH_STEPS
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, s)))
+        extra, off = {}, 0
+        if cfg.family == "vlm":
+            extra["embeds"] = torch.from_numpy(rng.standard_normal(
+                (2, cfg.frontend_len, cfg.d_model)).astype("float32"))
+            off = cfg.frontend_len
+        if cfg.family in ("encdec", "audio"):
+            extra["enc_inputs"] = torch.from_numpy(rng.standard_normal(
+                (2, cfg.frontend_len, cfg.d_model)).astype("float32"))
+        outs = {}
+        for where in (dev.type, "cpu"):
+            p = M.tree_map(lambda t: t.to(where), params)
+            kw = {k: v.to(where) for k, v in extra.items()}
+            tok = tokens.to(where)
+            with torch.inference_mode():
+                logits, cache = M.prefill(p, cfg, tok[:, :8],
+                                          max_len=off + s, **kw)
+                steps = [logits[:, 0].cpu()]
+                for t in range(8, s):
+                    logits, cache = M.decode_step(p, cfg, tok[:, t:t + 1],
+                                                  cache, off + t)
+                    steps.append(logits[:, 0].cpu())
+            outs[where] = torch.stack(steps).numpy()
+        err = float(np.abs(outs[dev.type] - outs["cpu"]).max())
+        ok = np.allclose(outs[dev.type], outs["cpu"], rtol, atol)
+        print(f"[lm_serve] {arch} reduced f32: prefill + {LM_ARCH_STEPS} "
+              f"decode steps, card vs CPU max abs err {err:.3g} "
+              f"({'ok' if ok else 'OUT OF TOLERANCE'})")
+        if not ok:
+            bad.append(f"{arch} card vs CPU {err:.3g}")
+    return bad
+
+
+def lm_fullwidth_recurrent(dev, rng, card):
+    """LM_FULL_ARCHS at their published widths and depths in f32 (TF32
+    off): prefill of 2 x 8 tokens and LM_FULL_STEPS greedy decode steps on
+    the card, every logit finite; the prefill and the first decode step
+    (fed the card's token) held against the port on the CPU, on the same
+    weights. Also the card's decode ms a step at 2 slots."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import model as M
+
+    rtol, atol = LM_SERVE_TOL
+    bad = []
+    for arch in LM_FULL_ARCHS:
+        cfg = dataclasses.replace(get_config(arch), dtype="float32")
+        params, _ = M.init_params(cfg, 0, device=dev)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 8)))
+        max_len = 8 + LM_FULL_STEPS
+        with torch.inference_mode():
+            logits, cache = M.prefill(params, cfg, tokens.to(dev),
+                                      max_len=max_len)
+            card_steps = [logits[:, 0].cpu()]
+            toks = [torch.argmax(logits[:, 0], -1)]
+            for t in range(LM_FULL_STEPS):
+                logits, cache = M.decode_step(params, cfg, toks[-1][:, None],
+                                              cache, 8 + t)
+                card_steps.append(logits[:, 0].cpu())
+                toks.append(torch.argmax(logits[:, 0], -1))
+            tok = toks[-1][:, None]
+            dec_ms = time_ms(lambda: M.decode_step(params, cfg, tok, cache,
+                                                   max_len - 1), reps=5)
+            n_params = sum(t.numel() for t in _leaves(params))
+            cpu = M.tree_map(lambda t: t.cpu(), params)
+            del params, cache
+            logits, cache = M.prefill(cpu, cfg, tokens, max_len=max_len)
+            cpu_steps = [logits[:, 0]]
+            logits, _ = M.decode_step(cpu, cfg, toks[0][:, None].cpu(),
+                                      cache, 8)
+            cpu_steps.append(logits[:, 0])
+            del cpu, cache
+        card_lg = torch.stack(card_steps).numpy()
+        got, want = card_lg[:2], torch.stack(cpu_steps).numpy()
+        err = float(np.abs(got - want).max())
+        finite = bool(np.isfinite(card_lg[..., :cfg.vocab]).all())
+        ok = finite and np.allclose(got, want, rtol, atol)
+        print(f"[lm_serve] {arch} full width ({cfg.n_layers} layers, "
+              f"d_model {cfg.d_model}, {n_params / 1e9:.4f} B parameters) "
+              f"f32: prefill 2 x 8 + {LM_FULL_STEPS} decode steps on the "
+              f"card, logits finite {finite}; prefill and first step card "
+              f"vs CPU max abs err {err:.3g} (rtol {rtol}, atol {atol}, "
+              f"{'ok' if ok else 'OUT OF TOLERANCE'}); decode step (2 "
+              f"slots, f32) {dec_ms:.4f} ms; {card}")
+        if not ok:
+            bad.append(f"{arch} full width: finite {finite}, card vs CPU "
+                       f"{err:.3g}")
+        torch.cuda.empty_cache()
+    return bad
+
+
+def phase_lm_serve(card):
+    """LM serving on the card: the CLI at its defaults on full-width
+    Llama-3.2-1B, the Engine's properties in bf16, W8, W4 and with the
+    int8 KV cache, the cache path against forward_train, the card against
+    the CPU and the JAX golden, the nine other archs, and no K2-K6 launch."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops as K
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models.lm import model as M
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(27)
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    out = serve_cli.main(["--arch", "llama3.2-1b"])
+    cfg, done = out["cfg"], out["done"]
+    bad = []
+    if sorted(done) != list(range(8)) or any(
+            len(t) != 16 or not all(0 <= x < cfg.vocab for x in t)
+            for t in done.values()):
+        bad.append("CLI: not 8 requests of 16 in-range tokens")
+    print(f"[lm_serve] CLI at its defaults ({cfg.name}: {cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.n_heads} heads / "
+          f"{cfg.n_kv_heads} kv, d_ff {cfg.d_ff}, vocab {cfg.vocab} padded "
+          f"to {M.padded_vocab(cfg)}, {cfg.dtype}): {len(done)} requests, "
+          f"{sum(map(len, done.values()))} tokens in {out['seconds']:.3f} s, "
+          f"{out['tok_per_s']:.1f} tok/s (the first batch pays the first "
+          f"calls); {card}")
+    bf16 = out["params"]
+    variants = [("bf16", cfg, bf16),
+                ("int8 KV", dataclasses.replace(cfg, kv_bits=8), bf16)]
+    for bits in (8, 4):
+        qcfg = dataclasses.replace(cfg, quant_bits=bits)
+        variants.append((f"W{bits}", qcfg,
+                         M.init_params(qcfg, 0, device=dev)[0]))
+    for tag, vcfg, params in variants:
+        bad += lm_engine_checks(tag, vcfg, params, rng)
+        dec_ms, tok, cache = lm_times(tag, vcfg, params, card)
+        if tag == "bf16":
+            lm_decode_profile(vcfg, params, tok, cache)
+        del cache
+    del variants, bf16, params, out
+    bad += lm_cache_vs_forward(cfg, dev, rng)
+    bad += lm_golden_checks(dev)
+    bad += lm_archs_card_vs_cpu(dev, rng)
+    bad += lm_fullwidth_recurrent(dev, rng, card)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    print(f"[lm_serve] K2-K6 launches on the LM serving path: {counts} "
+          f"(must all be 0: the JAX LM dequantizes and multiplies, and "
+          f"attends over the dequantized cache)")
+    if any(counts.values()):
+        bad.append(f"kernel launches {counts}")
+    print(f"[lm_serve] peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+          f"GiB; phase {time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+    if bad:
+        raise SystemExit(f"[lm_serve] failed: {'; '.join(bad)}")
+
+
 def busy_ms(events) -> float:
     """Length of the union of the device-side intervals (kernels, copies,
     memsets) among a profile's events, in ms. The CPU ops' rows also carry
@@ -2223,6 +2662,7 @@ def main() -> int:
     phase_serve(imgs, fix)
     phase_throughput(imgs, card)
     lm_rows, lm_launches = phase_lm(card)  # the LM entry points' counts
+    phase_lm_serve(card)
     phase_stream(card)
     phase_fixed_point(imgs, card)
     launches = phase_fleet(card)  # the serving path: both nets

@@ -1,0 +1,24 @@
+"""granite-3-2b [dense]: GQA.
+
+40L d_model=2048 32H (GQA kv=8) d_ff=8192 vocab=49155
+[hf:ibm-granite/granite-3.0-2b-base; hf]
+
+Counterpart of `repro/configs/granite_3_2b.py`, the same values.
+"""
+from repro_torch.models.lm.config import LMConfig
+
+
+def get_config(**kw) -> LMConfig:
+    return LMConfig(
+        name="granite-3-2b",
+        family="dense",
+        n_layers=40,
+        d_model=2048,
+        n_heads=32,
+        n_kv_heads=8,
+        head_dim=64,
+        d_ff=8192,
+        vocab=49155,
+        tie_embeddings=True,
+        **kw,
+    )

@@ -1,6 +1,19 @@
-"""Serving driver: integer vision QNets through the port's engines.
+"""Serving driver: LMs through the slot-batched `Engine`, integer vision
+QNets through the port's vision engines.
 
-Counterpart of the vision half of `repro/launch/serve.py`:
+Counterpart of `repro/launch/serve.py`. LM serving:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
+        [--reduced] [--requests 8] [--slots 4] [--max-new 16] \
+        [--prompt-len 12] [--max-len 128] [--quant-bits 8] [--device cpu]
+
+The weights come from the port's `init_params` seeded with `--seed` (its
+own draws, not the JAX CLI's); the prompts from numpy's generator seeded
+with `--seed`, as there. Even requests are greedy, odd ones sample at
+temperature 0.8. `--quant-bits` 8 or 4 serves weight-only quantized
+linears (dequantized next to each product, as the JAX model does).
+
+Vision serving:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --vision \
         --models mobilenet_v2,efficientnet_compact --hw 128 --requests 32 \
@@ -19,18 +32,20 @@ registry (Prometheus text for .prom/.txt, JSON otherwise); `python -m
 repro_torch.obs summarize` renders either.
 
 Without `--device` the driver runs on CUDA and fails where there is no
-card. Not ported yet, and refused with a non-zero exit: LM serving (no
-`--vision`; ROADMAP queue 1 item 12) and data-parallel replicas
-(`--replicas` > 1; item 11).
+card. Not ported yet, and refused with a non-zero exit: data-parallel
+replicas (`--replicas` > 1; ROADMAP queue 1 item 11b).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import sys
 import time
 
 import numpy as np
+
+from repro_torch.configs import ARCHS
 
 VISION_ARCHS = ("mobilenet_v2", "efficientnet_compact")
 
@@ -83,10 +98,7 @@ def vision_main(args):
     from repro_torch.core import cu
     from repro_torch.serve.vision import MultiModelEngine, VisionEngine
 
-    if args.replicas > 1:
-        raise SystemExit(
-            "--replicas > 1: data-parallel replicas are not ported yet "
-            "(ROADMAP queue 1 item 11)")
+    _refuse_replicas(args)
     dev = cu.resolve_device(args.device)
     tracer = metrics = None
     if args.trace_out:
@@ -155,11 +167,56 @@ def vision_main(args):
             "coverage": coverage, "stats": stats}
 
 
+def _refuse_replicas(args):
+    if args.replicas > 1:
+        raise SystemExit(
+            "--replicas > 1: data-parallel replicas are not ported yet "
+            "(ROADMAP queue 1 item 11b)")
+
+
+def lm_main(args):
+    """Serve `args.requests` seeded prompts through the LM `Engine`.
+    Returns {"done": {rid: tokens}, "cfg": LMConfig, "params": the served
+    weights, "seconds": wall time of the serving run (the device done),
+    "tok_per_s": tokens over it}."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.core.cu import resolve_device
+    from repro_torch.models.lm import model as M
+    from repro_torch.serve.engine import Engine, Request
+
+    _refuse_replicas(args)
+    dev = resolve_device(args.device)
+    cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
+    if args.quant_bits:
+        cfg = dataclasses.replace(cfg, quant_bits=args.quant_bits)
+    params, _ = M.init_params(cfg, args.seed, device=dev)
+    eng = Engine(cfg, params, batch_slots=args.slots, max_len=args.max_len,
+                 seed=args.seed, device=dev)
+    rng = np.random.default_rng(args.seed)
+    t0 = time.perf_counter()
+    for i in range(args.requests):
+        eng.submit(Request(
+            rid=i,
+            prompt=rng.integers(0, cfg.vocab, args.prompt_len).astype(
+                np.int32),
+            max_new=args.max_new,
+            temperature=0.0 if i % 2 == 0 else 0.8))
+    done = eng.run()  # tokens come back to the host: the device is done
+    dt = time.perf_counter() - t0
+    total_tokens = sum(len(v) for v in done.values())
+    for rid in sorted(done):
+        print(f"[serve] req {rid}: {done[rid][:8]}... "
+              f"({len(done[rid])} tokens)")
+    print(f"[serve] {len(done)} requests, {total_tokens} tokens in "
+          f"{dt:.2f}s ({total_tokens / dt:.1f} tok/s) on {dev}", flush=True)
+    return {"done": done, "cfg": cfg, "params": params, "seconds": dt,
+            "tok_per_s": total_tokens / dt}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--vision", action="store_true",
-                    help="serve integer vision QNets (LM serving is not "
-                         "ported yet)")
+                    help="serve integer vision QNets instead of an LM")
     ap.add_argument("--models", default="mobilenet_v2",
                     help="comma-separated vision model list "
                          f"(from {', '.join(VISION_ARCHS)})")
@@ -183,17 +240,23 @@ def main(argv=None):
     ap.add_argument("--metrics-out", default=None,
                     help="write the metrics registry (.prom/.txt = "
                          "Prometheus text, else JSON snapshot)")
+    ap.add_argument("--arch", choices=sorted(ARCHS), default="llama3.2-1b")
+    ap.add_argument("--reduced", action="store_true",
+                    help="the arch's reduced config (tiny widths)")
     ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--prompt-len", type=int, default=12)
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--quant-bits", type=int, default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: CUDA, which must exist)")
     args = ap.parse_args(argv)
 
-    if not args.vision:
-        raise SystemExit(
-            "LM serving is not ported yet (ROADMAP queue 1 item 12); pass "
-            "--vision to serve the vision QNets")
-    return vision_main(args)
+    if args.vision:
+        return vision_main(args)
+    return lm_main(args)
 
 
 if __name__ == "__main__":

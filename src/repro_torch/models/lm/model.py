@@ -1,0 +1,504 @@
+"""LM model assembly: init / forward / prefill / decode per family.
+
+Counterpart of `repro/models/lm/model.py`. Head = embedding (+ modality
+frontend stub), Body = the repeated block run over stacked layer
+parameters, Tail = final norm, Classifier = the LM head. Stacked layer
+parameters and caches keep the JAX trees' leading `[L, ...]` axis, so a
+JAX tree converts one to one; the JAX model's `lax.scan` over that axis is
+a Python loop here (`_remat`, a training option, is left out). `prefill`
+and `decode_step` update the caches in place, each layer in its slot of
+the stacked tensors, and return them: a decode step writes one position
+of the KV cache, not a copy of it.
+
+Every init returns (params, logical), logical mirroring params with tuples
+of logical axis names; stacked layer params get a leading `None`.
+
+Entry points that make tensors (`init_params`, `init_cache`) run on CUDA
+unless the caller names a device; the forward functions run where their
+inputs lie.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.core.cu import resolve_device
+from repro_torch.models.lm import common as C
+from repro_torch.models.lm import mamba2 as M2
+from repro_torch.models.lm import moe as MOE
+from repro_torch.models.lm import rglru as RG
+from repro_torch.models.lm.config import LMConfig
+
+F32 = torch.float32
+
+
+# ---------------------------------------------------------------------------
+# trees of tensors
+# ---------------------------------------------------------------------------
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _index(tree, i: int):
+    return tree_map(lambda t: t[i], tree)
+
+
+def _stack(trees):
+    """[tree] -> one tree with each leaf stacked on a new leading axis."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _write(dst, src):
+    """Copy a layer's new cache into `dst`, its slot of the caches; a leaf
+    that the layer wrote in place (a KV cache) is that slot already."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _write(dst[k], src[k])
+    elif src is not dst:
+        dst.copy_(src)
+
+
+# ---------------------------------------------------------------------------
+# per-family single-layer init/apply
+# ---------------------------------------------------------------------------
+
+
+def _init_layer(gen, cfg: LMConfig, kind: str):
+    """kind: dense | moe | rec | attn_local | ssm | enc | dec."""
+    p, lg = {}, {}
+    if kind == "ssm":
+        p["ln1"], lg["ln1"] = C.init_norm(gen, cfg.d_model, cfg)
+        p["mix"], lg["mix"] = M2.init_mamba2_block(gen, cfg)
+        return p, lg
+    p["ln1"], lg["ln1"] = C.init_norm(gen, cfg.d_model, cfg)
+    if kind == "rec":
+        p["mix"], lg["mix"] = RG.init_rglru_block(gen, cfg)
+    else:
+        p["mix"], lg["mix"] = C.init_attention(gen, cfg)
+    p["ln2"], lg["ln2"] = C.init_norm(gen, cfg.d_model, cfg)
+    if kind == "moe":
+        p["ffn"], lg["ffn"] = MOE.init_moe(gen, cfg)
+    else:
+        p["ffn"], lg["ffn"] = C.init_mlp(gen, cfg)
+    if kind == "dec":  # cross-attention sublayer
+        p["ln_x"], lg["ln_x"] = C.init_norm(gen, cfg.d_model, cfg)
+        p["xattn"], lg["xattn"] = C.init_attention(gen, cfg)
+    return p, lg
+
+
+def _apply_layer(p, x, cfg: LMConfig, kind: str, positions, *,
+                 cache=None, cache_pos=None, memory=None):
+    """Returns (x, new_cache, aux_loss)."""
+    aux = torch.zeros((), dtype=F32, device=x.device)
+    h = C.rms_norm(x, p["ln1"], cfg.norm_eps)
+    new_cache = cache
+    if kind == "ssm":
+        out, new_cache = M2.mamba2_block(p["mix"], h, cfg, state=cache)
+        if cache is None:  # no state carried
+            new_cache = None
+        return x + out, new_cache, aux
+    if kind == "rec":
+        out, new_cache = RG.rglru_block(p["mix"], h, cfg, state=cache)
+        if cache is None:
+            new_cache = None
+    else:
+        window = cfg.local_window if kind == "attn_local" else 0
+        self_cache = (cache.get("self") if isinstance(cache, dict)
+                      and "self" in cache else cache)
+        out, new_cache = C.attention_block(
+            p["mix"], h, cfg, positions, causal=kind != "enc", window=window,
+            kv_cache=self_cache, cache_pos=cache_pos)
+    x = x + out
+    if kind == "dec" and memory is not None:
+        hx = C.rms_norm(x, p["ln_x"], cfg.norm_eps)
+        if isinstance(cache, dict) and "cross" in cache:
+            # cross K/V are precomputed at prefill; reuse
+            xout = _cross_from_cache(p["xattn"], hx, cfg, cache["cross"])
+            new_cache = {"self": new_cache, "cross": cache["cross"]}
+        else:
+            xout, _ = C.attention_block(p["xattn"], hx, cfg, positions,
+                                        causal=False, xk=memory)
+            if cache is not None:
+                new_cache = {"self": new_cache,
+                             "cross": _make_cross_cache(p["xattn"], cfg,
+                                                        memory)}
+        x = x + xout
+    hf = C.rms_norm(x, p["ln2"], cfg.norm_eps)
+    if kind == "moe":
+        out, aux = MOE.moe_ffn(p["ffn"], hf, cfg)
+    else:
+        out = C.mlp(p["ffn"], hf)
+    return x + out, new_cache, aux
+
+
+def _make_cross_cache(p_attn, cfg, memory):
+    hd = cfg.head_dim
+    k = C.linear(memory, p_attn["wk"]).reshape(*memory.shape[:-1],
+                                               cfg.n_kv_heads, hd)
+    v = C.linear(memory, p_attn["wv"]).reshape(*memory.shape[:-1],
+                                               cfg.n_kv_heads, hd)
+    return {"k": k, "v": v}
+
+
+def _cross_from_cache(p_attn, x, cfg, cross):
+    hd = cfg.head_dim
+    q = C.linear(x, p_attn["wq"]).reshape(*x.shape[:-1], cfg.n_heads, hd)
+    if cfg.qk_norm:
+        q = C.rms_norm(q, p_attn["qnorm"], cfg.norm_eps)
+    out = C.full_attention(q, cross["k"], cross["v"], causal=False)
+    out = out.reshape(*x.shape[:-1], cfg.n_heads * hd)
+    return C.linear(out, p_attn["wo"])
+
+
+# ---------------------------------------------------------------------------
+# layer-kind schedule per family
+# ---------------------------------------------------------------------------
+
+
+def layer_kinds(cfg: LMConfig) -> Tuple[str, ...]:
+    if cfg.family == "moe":
+        return tuple("moe" for _ in range(cfg.n_layers))
+    if cfg.family == "ssm":
+        return tuple("ssm" for _ in range(cfg.n_layers))
+    if cfg.family == "hybrid":
+        pat = cfg.block_pattern or ("attn",)
+        return tuple(
+            ("attn_local" if pat[i % len(pat)] == "attn" else "rec")
+            for i in range(cfg.n_layers))
+    return tuple("dense" for _ in range(cfg.n_layers))
+
+
+def _kind_groups(kinds: Tuple[str, ...]):
+    """Group layers into a repeating super-block (stacked) + a tail."""
+    if len(set(kinds)) == 1:
+        return (kinds[0],), len(kinds), ()
+    pat = _pattern_period(kinds)
+    n_super = len(kinds) // len(pat)
+    tail = kinds[n_super * len(pat):]
+    return pat, n_super, tail
+
+
+def _pattern_period(kinds):
+    """Smallest prefix that tiles the whole layer-kind sequence."""
+    for plen in range(1, len(kinds) + 1):
+        if all(kinds[i] == kinds[i % plen] for i in range(len(kinds))):
+            return kinds[:plen]
+    return kinds
+
+
+# ---------------------------------------------------------------------------
+# model init
+# ---------------------------------------------------------------------------
+
+
+def padded_vocab(cfg: LMConfig) -> int:
+    """Vocab padded to a multiple of 512. The published vocab size is kept
+    for sampling: pad logits are masked to -1e30 in `logits_from_hidden`."""
+    return -(-cfg.vocab // 512) * 512
+
+
+def _is_axes(x) -> bool:
+    return isinstance(x, tuple) and all(a is None or isinstance(a, str)
+                                        for a in x)
+
+
+def _logical_map(fn, lg):
+    if _is_axes(lg):
+        return fn(lg)
+    return {k: _logical_map(fn, v) for k, v in lg.items()}
+
+
+def init_params(cfg: LMConfig, seed: int = 0,
+                device=None) -> Tuple[Dict, Dict]:
+    """(params, logical) of `cfg`, drawn on `device` (CUDA unless named)
+    from a generator seeded with `seed`. The same shapes, types and
+    distributions as the JAX model's `init_params`, not its draws."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    p: Dict[str, Any] = {}
+    lg: Dict[str, Any] = {}
+    vp = padded_vocab(cfg)
+    p["embed"] = C.normal(gen, (vp, cfg.d_model),
+                          cfg.d_model**-0.5).to(C.dt(cfg))
+    lg["embed"] = ("vocab", "embed")
+    if not cfg.tie_embeddings:
+        p["lm_head"], lg["lm_head"] = C.init_linear(
+            gen, cfg.d_model, vp, "embed", "vocab", cfg)
+    p["ln_f"], lg["ln_f"] = C.init_norm(gen, cfg.d_model, cfg)
+
+    def stack(kind, n):
+        layers = [_init_layer(gen, cfg, kind) for _ in range(max(n, 1))]
+        return (_stack([q for q, _ in layers]),
+                _logical_map(lambda ax: (None, *ax), layers[0][1]))
+
+    if cfg.family in ("encdec", "audio"):
+        p["enc"], lg["enc"] = stack("enc", cfg.n_enc_layers)
+        p["dec"], lg["dec"] = stack("dec", cfg.n_dec_layers)
+        p["ln_enc"], lg["ln_enc"] = C.init_norm(gen, cfg.d_model, cfg)
+    else:
+        pat, n_super, tail = _kind_groups(layer_kinds(cfg))
+        if len(pat) == 1:
+            p["layers"], lg["layers"] = stack(pat[0], n_super)
+        else:
+            sup_p, sup_lg = {}, {}
+            for i, kind in enumerate(pat):
+                sup_p[f"l{i}"], sup_lg[f"l{i}"] = stack(kind, n_super)
+            p["layers"], lg["layers"] = sup_p, sup_lg
+        for i, kind in enumerate(tail):
+            p[f"tail{i}"], lg[f"tail{i}"] = _init_layer(gen, cfg, kind)
+        if cfg.frontend:
+            # modality frontend STUB: one projection from precomputed
+            # patch/frame embeddings into d_model
+            p["frontend_proj"], lg["frontend_proj"] = C.init_linear(
+                gen, cfg.d_model, cfg.d_model, None, "embed", cfg)
+    return p, lg
+
+
+# ---------------------------------------------------------------------------
+# forward passes
+# ---------------------------------------------------------------------------
+
+
+def _run_stack(params, x, cfg, positions, *, caches=None, cache_pos=None):
+    """Run the (super-)block stack. caches: tree aligned with the layers,
+    updated in place, or None. Returns (x, caches, aux_sum)."""
+    pat, n_super, tail = _kind_groups(layer_kinds(cfg))
+    aux = torch.zeros((), dtype=F32, device=x.device)
+    for j in range(n_super):
+        layer_p = _index(params["layers"], j)
+        layer_c = _index(caches["layers"], j) if caches is not None else None
+        if len(pat) == 1:
+            x, new_c, a = _apply_layer(layer_p, x, cfg, pat[0], positions,
+                                       cache=layer_c, cache_pos=cache_pos)
+            aux = aux + a
+        else:
+            new_c = {}
+            for i, kind in enumerate(pat):
+                ci = layer_c[f"l{i}"] if layer_c is not None else None
+                x, new_c[f"l{i}"], a = _apply_layer(
+                    layer_p[f"l{i}"], x, cfg, kind, positions, cache=ci,
+                    cache_pos=cache_pos)
+                aux = aux + a
+        if caches is not None:
+            _write(layer_c, new_c)
+    for i, kind in enumerate(tail):
+        ci = caches[f"tail{i}"] if caches is not None else None
+        x, nc, a = _apply_layer(params[f"tail{i}"], x, cfg, kind, positions,
+                                cache=ci, cache_pos=cache_pos)
+        aux = aux + a
+        if caches is not None:
+            _write(ci, nc)
+    return x, caches, aux
+
+
+def embed_tokens(params, cfg: LMConfig, tokens, embeds=None):
+    x = params["embed"][tokens].to(C.dt(cfg))
+    if cfg.family in ("vlm",) and embeds is not None:
+        fe = C.linear(embeds.to(C.dt(cfg)), params["frontend_proj"])
+        x = torch.cat([fe, x], dim=1)
+    return x
+
+
+def logits_from_hidden(params, cfg: LMConfig, x):
+    x = C.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    if cfg.tie_embeddings:
+        logits = x @ params["embed"].to(x.dtype).T
+    else:
+        logits = C.linear(x, params["lm_head"])
+    vp = padded_vocab(cfg)
+    if vp != cfg.vocab:  # mask the padding rows out of the softmax
+        mask = torch.arange(vp, device=x.device) < cfg.vocab
+        logits = torch.where(mask, logits, torch.full(
+            (), C.NEG, dtype=logits.dtype, device=x.device))
+    return logits
+
+
+def forward_train(params, cfg: LMConfig, tokens, embeds=None,
+                  enc_inputs=None):
+    """Causal LM (or enc-dec) forward. Returns (logits [B, S, V], aux)."""
+    if cfg.family in ("encdec", "audio"):
+        return _encdec_forward(params, cfg, tokens, enc_inputs)
+    x = embed_tokens(params, cfg, tokens, embeds)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, _, aux = _run_stack(params, x, cfg, positions)
+    return logits_from_hidden(params, cfg, x), aux
+
+
+def _encode(params, cfg: LMConfig, enc_inputs):
+    """The encoder stack over precomputed frames -> normed memory."""
+    enc_x = enc_inputs.to(C.dt(cfg))  # [B, S_enc, D]
+    positions = torch.arange(enc_x.shape[1], device=enc_x.device)
+    for j in range(cfg.n_enc_layers):
+        enc_x, _, _ = _apply_layer(_index(params["enc"], j), enc_x, cfg,
+                                   "enc", positions)
+    return C.rms_norm(enc_x, params["ln_enc"], cfg.norm_eps)
+
+
+def _encdec_forward(params, cfg: LMConfig, tokens, enc_inputs):
+    memory = _encode(params, cfg, enc_inputs)
+    x = embed_tokens(params, cfg, tokens)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for j in range(cfg.n_dec_layers):
+        x, _, _ = _apply_layer(_index(params["dec"], j), x, cfg, "dec",
+                               positions, memory=memory)
+    return (logits_from_hidden(params, cfg, x),
+            torch.zeros((), dtype=F32, device=x.device))
+
+
+# ---------------------------------------------------------------------------
+# caches: init / prefill / decode
+# ---------------------------------------------------------------------------
+
+
+def _layer_cache(cfg: LMConfig, kind: str, batch: int, max_len: int, dev):
+    hd, kvh = cfg.head_dim or 0, cfg.n_kv_heads
+    dtype = C.dt(cfg)
+
+    def zeros(shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    if kind == "ssm":
+        d_in, nh, hp, ns = M2.dims(cfg)
+        return {"conv": zeros((batch, cfg.conv_width - 1, d_in + 2 * ns)),
+                "ssd": zeros((batch, nh, ns, hp), F32)}
+    if kind == "rec":
+        return {"conv": zeros((batch, cfg.conv_width - 1, cfg.lru_width)),
+                "h": zeros((batch, cfg.lru_width), F32)}
+    kv_dtype = torch.int8 if cfg.kv_bits == 8 else dtype
+    size = min(max_len, cfg.local_window) if kind == "attn_local" \
+        else max_len
+    cache = {"k": zeros((batch, size, kvh, hd), kv_dtype),
+             "v": zeros((batch, size, kvh, hd), kv_dtype)}
+    if kind == "attn_local":
+        cache["pos"] = torch.full((size,), -1, dtype=torch.int32, device=dev)
+    if cfg.kv_bits == 8:
+        cache["k_scale"] = zeros((batch, size, kvh), torch.bfloat16)
+        cache["v_scale"] = zeros((batch, size, kvh), torch.bfloat16)
+    if kind == "dec":
+        return {"self": cache, "cross": None}  # cross filled at prefill
+    return cache
+
+
+def init_cache(cfg: LMConfig, batch: int, max_len: int, enc_len: int = 0,
+               device=None):
+    """Empty caches of every layer, on `device` (CUDA unless named)."""
+    dev = resolve_device(device)
+    if cfg.family in ("encdec", "audio"):
+        dtype = C.dt(cfg)
+        hd, kvh, n = cfg.head_dim, cfg.n_kv_heads, cfg.n_dec_layers
+
+        def zeros(s):
+            return torch.zeros((n, batch, s, kvh, hd), dtype=dtype,
+                               device=dev)
+
+        return {"self": {"k": zeros(max_len), "v": zeros(max_len)},
+                "cross": {"k": zeros(enc_len), "v": zeros(enc_len)}}
+    pat, n_super, tail = _kind_groups(layer_kinds(cfg))
+
+    def stacked(kind):
+        return tree_map(
+            lambda t: t.expand(n_super, *t.shape).clone(),
+            _layer_cache(cfg, kind, batch, max_len, dev))
+
+    if len(pat) == 1:
+        caches = {"layers": stacked(pat[0])}
+    else:
+        caches = {"layers": {f"l{i}": stacked(kind)
+                             for i, kind in enumerate(pat)}}
+    for i, kind in enumerate(tail):
+        caches[f"tail{i}"] = _layer_cache(cfg, kind, batch, max_len, dev)
+    return caches
+
+
+def cache_logical(cfg: LMConfig):
+    """Logical axes for cache leaves (batch-sharded, heads model-sharded)."""
+    def leaf_axes(x):
+        if x.ndim >= 4:  # [(L,)? B, S, KV, hd] or ssd [(L,)? B, H, N, P]
+            lead = (None,) * (x.ndim - 4)
+            return (*lead, "batch", None, "heads", None)
+        if x.ndim >= 2:
+            return ("batch",) + (None,) * (x.ndim - 1)
+        return (None,) * x.ndim
+    return leaf_axes
+
+
+def prefill(params, cfg: LMConfig, tokens, max_len: int, embeds=None,
+            enc_inputs=None):
+    """Run the prompt, fill caches. Returns (last_logits, cache)."""
+    if cfg.family in ("encdec", "audio"):
+        return _encdec_prefill(params, cfg, tokens, max_len, enc_inputs)
+    caches = init_cache(cfg, tokens.shape[0], max_len, device=tokens.device)
+    x = embed_tokens(params, cfg, tokens, embeds)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, new_caches, _ = _run_stack(params, x, cfg, positions, caches=caches)
+    return logits_from_hidden(params, cfg, x[:, -1:]), new_caches
+
+
+def decode_step(params, cfg: LMConfig, token, caches, pos: int):
+    """token: [B, 1] integer; pos: the current absolute position."""
+    pos = int(pos)
+    if cfg.family in ("encdec", "audio"):
+        return _encdec_decode(params, cfg, token, caches, pos)
+    x = embed_tokens(params, cfg, token)
+    positions = pos + torch.arange(1, device=x.device)
+    x, new_caches, _ = _run_stack(params, x, cfg, positions, caches=caches,
+                                  cache_pos=pos)
+    return logits_from_hidden(params, cfg, x), new_caches
+
+
+def _dec_layer(lp, x, cfg, positions, self_c, cross_c, cache_pos):
+    """One decoder layer against its self cache (written in place) and
+    precomputed cross K/V."""
+    hh = C.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    out, _ = C.attention_block(lp["mix"], hh, cfg, positions, causal=True,
+                               kv_cache=self_c, cache_pos=cache_pos)
+    x = x + out
+    hx = C.rms_norm(x, lp["ln_x"], cfg.norm_eps)
+    x = x + _cross_from_cache(lp["xattn"], hx, cfg, cross_c)
+    return x + C.mlp(lp["ffn"], C.rms_norm(x, lp["ln2"], cfg.norm_eps))
+
+
+def _encdec_prefill(params, cfg, tokens, max_len, enc_inputs):
+    memory = _encode(params, cfg, enc_inputs)
+    b, s_enc = memory.shape[0], memory.shape[1]
+    caches = init_cache(cfg, b, max_len, enc_len=s_enc, device=memory.device)
+    hd, kvh = cfg.head_dim, cfg.n_kv_heads
+    cross = []
+    for j in range(cfg.n_dec_layers):
+        xa = _index(params["dec"]["xattn"], j)
+        cross.append({
+            "k": C.linear(memory, xa["wk"]).reshape(b, s_enc, kvh, hd),
+            "v": C.linear(memory, xa["wv"]).reshape(b, s_enc, kvh, hd)})
+    cross = _stack(cross)
+
+    x = embed_tokens(params, cfg, tokens)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for j in range(cfg.n_dec_layers):
+        x = _dec_layer(_index(params["dec"], j), x, cfg, positions,
+                       _index(caches["self"], j), _index(cross, j), None)
+    caches["cross"] = cross
+    return logits_from_hidden(params, cfg, x[:, -1:]), caches
+
+
+def _encdec_decode(params, cfg, token, caches, pos: int):
+    x = embed_tokens(params, cfg, token)
+    positions = pos + torch.arange(1, device=x.device)
+    for j in range(cfg.n_dec_layers):
+        x = _dec_layer(_index(params["dec"], j), x, cfg, positions,
+                       _index(caches["self"], j), _index(caches["cross"], j),
+                       pos)
+    return logits_from_hidden(params, cfg, x), caches
+
+
+__all__ = [
+    "init_params", "forward_train", "init_cache", "prefill", "decode_step",
+    "layer_kinds", "cache_logical", "padded_vocab", "embed_tokens",
+    "logits_from_hidden", "tree_map",
+]

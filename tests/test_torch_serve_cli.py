@@ -1,19 +1,30 @@
-"""The port's vision serving CLI (`python -m repro_torch.launch.serve
---vision`) on the CPU: every request served, its logits equal to the
+"""The port's serving CLI (`python -m repro_torch.launch.serve`) on the
+CPU. Vision (`--vision`): every request served, its logits equal to the
 port's `cu.run_qnet` for the same nets (the CLI's nets come from the
 port's own `make_calibrated_qnet` draws, so they are not the JAX CLI's),
 a tuned cache written by `--tune` and served by a second run, the trace
-and metrics files, and the refusals of what is not ported."""
+and metrics files. LM (the default): every request served, the greedy
+requests' tokens equal to the JAX CLI's on JAX's weights, `--quant-bits`
+serving integer weights. And the refusal of what is not ported
+(`--replicas` > 1)."""
 from __future__ import annotations
 
+import dataclasses
 import json
 
+import jax
 import numpy as np
 import pytest
 import torch
 
+from repro import configs as jax_configs
+from repro.launch import serve as JAX_CLI
+from repro.models.lm import model as JM
+from repro_torch import configs as port_configs
+from repro_torch.convert import params_from_reference
 from repro_torch.core import cu
 from repro_torch.launch import serve as CLI
+from repro_torch.models.lm import model as M
 from repro_torch.obs import validate_chrome_trace
 from repro_torch.tune import load_tuned
 
@@ -91,7 +102,7 @@ def test_metrics_json_snapshot(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--requests", "2"], "item 12"),
+    (["--requests", "2", "--replicas", "2", "--device", "cpu"], "item 11"),
     (BASE + ["--replicas", "2"], "item 11"),
 ])
 def test_refuses_what_is_not_ported(argv, item):
@@ -105,3 +116,63 @@ def test_default_device_needs_a_card():
         pytest.skip("a card is there")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         CLI.main(["--vision", "--hw", "32", "--requests", "1"])
+
+
+LM = ["--arch", "llama3.2-1b", "--reduced", "--device", "cpu"]
+
+
+def test_lm_serves_every_request(capsys):
+    out = CLI.main(LM)
+    done, cfg = out["done"], out["cfg"]
+    assert sorted(done) == list(range(8))
+    assert all(len(t) == 16 and all(0 <= x < cfg.vocab for x in t)
+               for t in done.values())
+    assert cfg == port_configs.reduced_config("llama3.2-1b")
+    assert out["tok_per_s"] > 0
+    text = capsys.readouterr().out
+    assert "[serve] 8 requests, 128 tokens in" in text and "on cpu" in text
+
+
+def test_lm_greedy_requests_equal_jax_cli(monkeypatch):
+    """Both CLIs at their defaults on the reduced llama3.2-1b in f32 (in
+    bf16 two logits within an ulp may order either way), the port serving
+    JAX's weights: the same prompts (numpy, seeded alike), and every greedy
+    (even) request's tokens equal."""
+    def f32(module):
+        reduced = module.reduced_config
+        return lambda arch: dataclasses.replace(reduced(arch),
+                                                dtype="float32")
+
+    monkeypatch.setattr(JAX_CLI, "reduced_config", f32(jax_configs))
+    monkeypatch.setattr(port_configs, "reduced_config", f32(port_configs))
+    argv = ["--arch", "llama3.2-1b", "--reduced"]
+    want = JAX_CLI.main(argv)
+    jparams, _ = JM.init_params(JAX_CLI.reduced_config("llama3.2-1b"),
+                                jax.random.PRNGKey(0))
+    monkeypatch.setattr(M, "init_params", lambda cfg, seed, device: (
+        params_from_reference(jax.tree.map(np.asarray, jparams), device),
+        None))
+    got = CLI.main(argv + ["--device", "cpu"])["done"]
+    assert sorted(got) == sorted(want)
+    for rid in range(0, 8, 2):
+        assert got[rid] == [int(t) for t in want[rid]], rid
+
+
+@pytest.mark.parametrize("bits,dtype", [(8, torch.int8), (4, torch.uint8)])
+def test_lm_quant_bits_serves_integer_weights(bits, dtype):
+    out = CLI.main(LM + ["--quant-bits", str(bits), "--requests", "2",
+                         "--max-new", "4"])
+    assert out["cfg"].quant_bits == bits
+    leaves = []
+    M.tree_map(leaves.append, out["params"])
+    quantized = [t for t in leaves if t.dtype == dtype]
+    # q, k, v, o, gate, up, down, each stacked over the layers
+    assert [tuple(t.shape[:1]) for t in quantized] == [(2,)] * 7
+    assert all(len(t) == 4 for t in out["done"].values())
+
+
+def test_lm_default_device_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is there")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CLI.main(["--arch", "llama3.2-1b", "--reduced", "--requests", "1"])

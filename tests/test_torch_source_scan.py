@@ -2,8 +2,9 @@
 `chip_smoke.py`, imports JAX or the JAX package, and every entry point
 (the streaming engine, fixed-point inference, the multi-model router, the
 energy model's default power curve, the vision trainer, its export and its
-CLI included) called without `device=` (or `backend=`) on a machine
-without CUDA raises instead of running on the CPU."""
+CLI, the LM's init, cache and `Engine` and the LM serving CLI included)
+called without `device=` (or `backend=`) on a machine without CUDA raises
+instead of running on the CPU."""
 import ast
 import pathlib
 
@@ -11,11 +12,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import reduced_config
 from repro_torch.convert import lm_from_reference
 from repro_torch.core import cu, qnet as Q
 from repro_torch.energy import default_power_model, estimate_energy
+from repro_torch.launch import serve as serve_cli
 from repro_torch.launch import train_vision as train_cli
 from repro_torch.models import layers
+from repro_torch.models.lm import model as LM
+from repro_torch.serve.engine import Engine
 from repro_torch.serve.stream import StreamEngine, reference_windows
 from repro_torch.serve.vision import (
     MultiModelEngine,
@@ -53,7 +58,10 @@ def test_port_files_found():
                 "models/layers.py", "data/pipeline.py", "train/tree.py",
                 "train/optimizer.py", "train/train_loop.py",
                 "train/checkpoint.py", "train/vision.py",
-                "train/parity.py", "launch/train_vision.py"):
+                "train/parity.py", "launch/train_vision.py",
+                "models/lm/model.py", "models/lm/moe.py",
+                "models/lm/mamba2.py", "models/lm/rglru.py",
+                "configs/registry.py", "serve/engine.py"):
         assert ROOT / "src" / "repro_torch" / rel in PORT_FILES
 
 
@@ -77,7 +85,9 @@ def test_no_jax_or_reference_import(path):
                                    "train_and_export", "export",
                                    "verify_export", "make_calibrated_qnet",
                                    "train_vision CLI",
-                                   "train_vision --check-artifact"])
+                                   "train_vision --check-artifact",
+                                   "Engine", "init_params", "init_cache",
+                                   "LM serve CLI"])
 def test_entry_points_refuse_to_run_without_cuda(entry, monkeypatch):
     path = fixture_paths("mobilenet_v2", 8)[0]
     qnet = Q.load_qnet(path)
@@ -85,6 +95,7 @@ def test_entry_points_refuse_to_run_without_cuda(entry, monkeypatch):
     x = np.zeros((1, 32, 32, 3), np.float32)
     frames = np.zeros((32, 6), np.float32)
     cfg = V.VisionTrainConfig(float_steps=1, qat_steps=1, batch=2)
+    lm = reduced_config("llama3.2-1b")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     call = {"prepare_qnet": lambda: cu.prepare_qnet(qnet),
             "run_qnet": lambda: cu.run_qnet(qnet, x),
@@ -111,6 +122,11 @@ def test_entry_points_refuse_to_run_without_cuda(entry, monkeypatch):
                 lambda: layers.make_calibrated_qnet(V.build_net(cfg)),
             "train_vision CLI": lambda: train_cli.main(["--smoke"]),
             "train_vision --check-artifact":
-                lambda: train_cli.main(["--check-artifact", path])}[entry]
+                lambda: train_cli.main(["--check-artifact", path]),
+            "Engine": lambda: Engine(lm, {}),
+            "init_params": lambda: LM.init_params(lm),
+            "init_cache": lambda: LM.init_cache(lm, 1, 8),
+            "LM serve CLI":
+                lambda: serve_cli.main(["--reduced", "--requests", "1"])}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()

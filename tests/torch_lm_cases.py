@@ -55,3 +55,64 @@ def decode_inputs(cfg):
     k = rng.standard_normal((b, s, kv, dh), dtype=np.float32)
     v = rng.standard_normal((b, s, kv, dh), dtype=np.float32)
     return q, k, v
+
+
+# --- the served model (`tests/golden_torch/llama32_1b_serve.npz`) ---------
+# Llama-3.2-1B at its published widths, depth cut to 2 layers, in f32:
+# numpy-seeded weights in the JAX model's parameter tree, 4 prompts of 12
+# tokens, prefill then 8 greedy decode steps.
+SERVE_LAYERS, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_MAX_LEN = (
+    2, 4, 12, 8, 32)
+SERVE_VOCAB_IDS = 256  # the logits stored: these ids (seeded) + the argmax
+
+
+def _padded_vocab(cfg) -> int:
+    return -(-cfg.vocab // 512) * 512
+
+
+def serve_params(cfg):
+    """The dense, tied-embedding parameter tree of `init_params` (stacked
+    layers [L, ...]) for `cfg`, f32: weights N(0, 1) * K**-0.5, the embedding
+    N(0, 1) * D**-0.5, norm scales 1 + N(0, 1) * 0.1."""
+    d, hd, f, n = cfg.d_model, cfg.head_dim, cfg.d_ff, cfg.n_layers
+
+    def w(name, k, nout):
+        rng = np.random.default_rng(_seed("serve:" + name))
+        return (rng.standard_normal((n, k, nout), dtype=np.float32)
+                * np.float32(k**-0.5))
+
+    def norm(name, shape):
+        rng = np.random.default_rng(_seed("serve:" + name))
+        return 1 + np.float32(0.1) * rng.standard_normal(
+            shape, dtype=np.float32)
+
+    rng = np.random.default_rng(_seed("serve:embed"))
+    embed = rng.standard_normal((_padded_vocab(cfg), d), dtype=np.float32)
+    embed *= np.float32(d**-0.5)
+    return {
+        "embed": embed,
+        "ln_f": {"scale": norm("ln_f", (d,))},
+        "layers": {
+            "ln1": {"scale": norm("ln1", (n, d))},
+            "mix": {"wq": {"w": w("wq", d, cfg.n_heads * hd)},
+                    "wk": {"w": w("wk", d, cfg.n_kv_heads * hd)},
+                    "wv": {"w": w("wv", d, cfg.n_kv_heads * hd)},
+                    "wo": {"w": w("wo", cfg.n_heads * hd, d)}},
+            "ln2": {"scale": norm("ln2", (n, d))},
+            "ffn": {"wi": {"w": w("wi", d, f)}, "wg": {"w": w("wg", d, f)},
+                    "wo": {"w": w("wo_ffn", f, d)}},
+        },
+    }
+
+
+def serve_prompts(cfg) -> np.ndarray:
+    """int32 [SERVE_BATCH, SERVE_PROMPT] token ids."""
+    rng = np.random.default_rng(_seed("serve:prompts"))
+    return rng.integers(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)).astype(
+        np.int32)
+
+
+def serve_vocab_ids(cfg) -> np.ndarray:
+    """The sorted vocab ids whose logits the golden keeps."""
+    rng = np.random.default_rng(_seed("serve:ids"))
+    return np.sort(rng.choice(cfg.vocab, SERVE_VOCAB_IDS, replace=False))
