@@ -94,6 +94,27 @@ last line:
      f32: prefill and 4 greedy steps on the card, finite, the prefill and
      first step against the CPU (LM_SERVE_TOL), and a decode step's ms.
      Peak memory and the phase's seconds;
+  6b. lm_train: LM training (`models/lm/model.loss_fn`,
+     `train/train_loop.make_train_step`, `launch/train.py`), which
+     launches none of K2-K6 either (the JAX LM trains through no Pallas
+     kernel; the counters must read 0 at the phase's end). One f32
+     `make_train_step` step on the card against the CPU from the same
+     seeded weights and numpy batch (2 x 32 tokens): Llama-3.2-1B at its
+     published widths cut to 2 layers, then the nine other archs at
+     `reduced_config`; loss, grad norm, lr, every gradient leaf, the
+     updated params and AdamW's m and v held to `train/parity.py`'s LM_*
+     bounds (`lm_step_errors`, the CPU tests' own). Then the driver
+     `launch/train.main` at its defaults on full-depth bf16 Llama-3.2-1B
+     (batch 8 x seq 128) for 6 steps with a checkpoint directory; again,
+     stopped by a SIGTERM (sent as the data stream hands out step 3's
+     batch: the drain checkpoints after step 3) and `--resume`d to step
+     6: the losses and the final checkpoint's params must equal the
+     straight run's bit for bit, its AdamW moments by size and CRC-32;
+     losses finite. Then the step timed at the driver's defaults (median
+     of 6, tokens/s), its forward-and-backward and its AdamW alone, one
+     step under torch.profiler (busy share, device intervals, by kernel
+     family), the `--grad-compress` step, beside the matmul and AdamW
+     bounds. Peak memory of the driver's run and the phase's seconds;
   7. stream: `StreamEngine` on `cuda` serves the full-width keyword-spotting
      DS-CNN (`build_kws()` defaults: 49 frames x 10 MFCC, 64 channels, 4
      DS blocks, act8; `tests/torch_stream_cases.py`) at hop 4: 64 sessions
@@ -303,7 +324,7 @@ def digests(act) -> list:
 
 
 def time_ms(fn, reps: int = REPS, device_only: bool = False,
-            flush=None) -> float:
+            flush=None, samples=None) -> float:
     """Median time of one call, CUDA events around each call: the call as
     the host sees it, its Python wrapper and launch cost included (the
     `ms` of every kernel line and of the JSON line). With `device_only`, a
@@ -313,7 +334,8 @@ def time_ms(fn, reps: int = REPS, device_only: bool = False,
     host side outlasts the spin still shows its gaps. With `flush`, a
     tensor of FLUSH_BYTES is zeroed before each call, outside the events,
     so that the call finds the L2 cache holding none of its inputs
-    (`cold_device_ms`)."""
+    (`cold_device_ms`). With `samples`, a list, every time is appended to
+    it."""
     import torch
     for _ in range(3):
         fn()
@@ -330,6 +352,8 @@ def time_ms(fn, reps: int = REPS, device_only: bool = False,
         t1.record()
         t1.synchronize()
         times.append(t0.elapsed_time(t1))
+    if samples is not None:
+        samples.extend(times)
     return statistics.median(times)
 
 
@@ -2571,6 +2595,330 @@ def phase_lm_serve(card):
         raise SystemExit(f"[lm_serve] failed: {'; '.join(bad)}")
 
 
+LM_TRAIN_LAYERS = 2  # the card-vs-CPU step at Llama-3.2-1B's widths, f32
+LM_TRAIN_BATCH = (2, 32)  # its batch x seq, and the nine archs'
+LM_TRAIN_STEPS = 6  # the driver's full-depth bf16 run ...
+LM_TRAIN_STOP = 3  # ... stopped by SIGTERM after this step, then resumed
+LM_TRAIN_REPS = 6  # timed steps (median), after 3 warm-ups (`time_ms`)
+LM_TRAIN_CKPT = os.path.join(OUT_DIR, "lm_train_ckpt")
+
+
+def lm_train_sides(cfg, params, batch, dev, opt_cfg):
+    """One `make_train_step` step and the loss's gradients on the CPU and
+    on `dev` from the same params (CPU tensors) and numpy batch: the two
+    sides as `train/parity.lm_step_errors` reads them."""
+    import torch
+
+    from repro_torch.models.layers import exact_f32
+    from repro_torch.models.lm import model as M
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.train_loop import make_train_step, value_and_grad
+
+    sides = {}
+    for where in ("cpu", dev):
+        p = M.tree_map(lambda t: t.to(where), params)
+        b = {k: torch.from_numpy(v).to(where) for k, v in batch.items()}
+        b["tokens"] = b["tokens"].long()
+        new_p, state, metrics = make_train_step(cfg, opt_cfg)(
+            p, O.init_state(p), b)
+        with exact_f32():
+            _, _, grads = value_and_grad(
+                lambda q, bb: M.loss_fn(q, cfg, bb), p, b)
+        sides[str(where)] = dict(
+            loss=metrics["loss"], grad_norm=metrics["grad_norm"],
+            lr=metrics["lr"], grads=grads, params=new_p, m=state.m,
+            v=state.v)
+        del p, b
+    return sides["cpu"], sides[str(dev)]
+
+
+def lm_train_batch(cfg, rng):
+    """A numpy batch of LM_TRAIN_BATCH tokens (and the modality stub's
+    inputs) for `cfg`."""
+    b, s = LM_TRAIN_BATCH
+    batch = {"tokens": rng.integers(0, cfg.vocab, (b, s)).astype("int32")}
+    if cfg.family == "vlm":
+        batch["embeds"] = rng.standard_normal(
+            (b, cfg.frontend_len, cfg.d_model)).astype("float32")
+    if cfg.family in ("encdec", "audio"):
+        batch["enc_inputs"] = rng.standard_normal(
+            (b, cfg.frontend_len, cfg.d_model)).astype("float32")
+    return batch
+
+
+def lm_train_card_vs_cpu(dev, rng, card):
+    """One f32 train step on the card against the CPU, under the CPU
+    tests' bounds (`train/parity.py`'s LM_*): Llama-3.2-1B at its published
+    widths cut to LM_TRAIN_LAYERS layers, then the nine other archs at
+    `reduced_config`."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, get_config, reduced_config
+    from repro_torch.models.lm import model as M
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import parity as PP
+
+    opt_cfg = O.AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    full = dataclasses.replace(get_config("llama3.2-1b"), dtype="float32",
+                               n_layers=LM_TRAIN_LAYERS)
+    cases = [("llama3.2-1b full width", full)] + [
+        (f"{a} reduced", dataclasses.replace(reduced_config(a),
+                                             dtype="float32"))
+        for a in sorted(ARCHS) if a != "llama3.2-1b"]
+    bad = []
+    for tag, cfg in cases:
+        t0 = time.perf_counter()
+        params, _ = M.init_params(cfg, 0, device="cpu")
+        want, got = lm_train_sides(cfg, params, lm_train_batch(cfg, rng),
+                                   dev, opt_cfg)
+        err = PP.lm_step_errors(params, want, got, opt_cfg, device=dev)
+        fails = PP.lm_step_failures(
+            err, params_sure=PP.LM_PARAM_SURE_CARD)
+        print(f"[lm_train] {tag} f32 ({cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, vocab {cfg.vocab}), one step card vs CPU: "
+              f"loss rel {err['loss']:.3g}, grad_norm rel "
+              f"{err['grad_norm']:.3g}, lr abs {err['lr']:.3g}, gradients "
+              f"{err['grads']:.3g} ({err['worst_grad']}), moments "
+              f"{err['moments']:.3g} ({err['worst_moment']}), params "
+              f"{err['params_sure']:.3g} lr where sure (share "
+              f"{err['sure_share']:.4f}), {err['params']:.3g} lr at most; "
+              f"{'ok' if not fails else 'FAILED ' + '; '.join(fails)} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        if fails:
+            bad.append(f"{tag}: {'; '.join(fails)}")
+        del params, want, got
+    return bad
+
+
+def _ckpt_compare(a_dir, b_dir, n_exact: int):
+    """(same step, the first `n_exact` stored leaves equal bit for bit, the
+    rest equal in size and CRC-32, bytes compared) of the newest
+    checkpoints in two directories. The leaves are stored in the tree's
+    order, so a (params, opt_state) checkpoint's parameters come first;
+    reading back the 10 GB of AdamW moments twice more would double the
+    phase, so their stored CRC-32s stand in for them."""
+    import zipfile
+
+    import numpy as np
+
+    from repro_torch.train import checkpoint as CKPT
+
+    steps = [CKPT.latest_step(d) for d in (a_dir, b_dir)]
+    paths = [os.path.join(d, f"step_{s:08d}", "arrays.npz")
+             for d, s in zip((a_dir, b_dir), steps)]
+    infos = []
+    for path in paths:
+        with zipfile.ZipFile(path) as z:
+            infos.append({i.filename: (i.file_size, i.CRC)
+                          for i in z.infolist()})
+    crc_same = infos[0] == infos[1]
+    nbytes = 0
+    with np.load(paths[0]) as za, np.load(paths[1]) as zb:
+        exact = True
+        for i in range(n_exact):
+            x, y = za[f"a{i}"], zb[f"a{i}"]
+            exact &= x.dtype == y.dtype and np.array_equal(x, y)
+            nbytes += x.nbytes
+    return steps, exact, crc_same, nbytes, len(infos[0])
+
+
+def lm_train_driver(card):
+    """`launch/train.main` on full-depth bf16 Llama-3.2-1B at its defaults
+    (batch 8 x seq 128) for LM_TRAIN_STEPS steps; then again, stopped by a
+    SIGTERM as it draws the batch of step LM_TRAIN_STOP (the drain
+    checkpoints after that step), and `--resume`d to the end: losses and
+    the final checkpoint's params bitwise the straight run's, its AdamW
+    moments by size and CRC-32 (`_ckpt_compare`). Returns (failures, peak
+    GiB)."""
+    import shutil
+    import signal
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.lm import model as M
+    from repro_torch.train import tree as T
+
+    shutil.rmtree(LM_TRAIN_CKPT, ignore_errors=True)
+    base = ["--steps", str(LM_TRAIN_STEPS), "--log-every", "1",
+            "--device", "cuda"]
+    a_dir, b_dir = (os.path.join(LM_TRAIN_CKPT, d) for d in "ab")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    straight = train_cli.main(base + ["--ckpt-dir", a_dir])
+    t_straight = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    real = train_cli.lm_stream
+
+    def preempted(cfg, start_step=0):
+        for i, b in enumerate(real(cfg, start_step), start_step):
+            if i == LM_TRAIN_STOP - 1:
+                os.kill(os.getpid(), signal.SIGTERM)
+            yield b
+
+    train_cli.lm_stream = preempted
+    try:
+        first = train_cli.main(base + ["--ckpt-dir", b_dir])
+    finally:
+        train_cli.lm_stream = real
+    rest = train_cli.main(base + ["--ckpt-dir", b_dir, "--resume"])
+    t_all = time.perf_counter() - t0
+    n_params = len(T.leaves(M.init_params(reduced_config("llama3.2-1b"), 0,
+                                          device="cpu")[0]))
+    steps, exact, crc_same, nbytes, n_leaves = _ckpt_compare(
+        a_dir, b_dir, n_params + 1)
+    shutil.rmtree(LM_TRAIN_CKPT, ignore_errors=True)
+    finite = bool(np.isfinite(straight).all())
+    same = steps == [LM_TRAIN_STEPS] * 2 and exact and crc_same
+    print(f"[lm_train] launch/train.py, Llama-3.2-1B full depth bf16, batch "
+          f"8 x seq 128: losses {' '.join(f'{x:.4f}' for x in straight)} "
+          f"(finite {finite}); stopped by SIGTERM after "
+          f"{len(first)} steps and resumed for {len(rest)}: losses equal "
+          f"{first + rest == straight}; final checkpoints ({n_leaves} "
+          f"leaves): the params and step bitwise equal {exact} "
+          f"({nbytes / 1e9:.3f} GB compared), every leaf's size and "
+          f"CRC-32 equal {crc_same}; straight run {t_straight:.1f} s, all "
+          f"three {t_all:.1f} s; peak {peak:.3f} GiB; {card}")
+    bad = []
+    if not finite:
+        bad.append("driver losses not finite")
+    if first + rest != straight or not same:
+        bad.append("restart not bitwise")
+    return bad, peak
+
+
+def lm_train_bounds(cfg, b: int, s: int):
+    """(matmul TFLOP a step, its ms at the bf16 peak, optimizer GB a step,
+    its ms at the HBM rate) of a train step of `cfg` on b x s tokens: 6
+    flops a token per linear weight (forward, two backward products) and
+    the tied head, plus attention's two S x S products three times over
+    (the port computes the whole square, then masks it); AdamW reads
+    params, grads, m and v and writes params, m and v once (bf16 params
+    and grads, f32 moments). The optimizer waits for every gradient, so
+    the step takes at least the two times' sum."""
+    from repro_torch.models.lm import model as M
+
+    d, hd, L = cfg.d_model, cfg.head_dim, cfg.n_layers
+    lin = L * (d * hd * (cfg.n_heads * 2 + cfg.n_kv_heads * 2)
+               + 3 * d * cfg.d_ff)
+    head = M.padded_vocab(cfg) * d
+    tokens = b * s
+    attn = 3 * L * b * cfg.n_heads * s * s * hd * 2 * 2
+    flops = 6 * tokens * (lin + head) + attn
+    n_params = lin + head + L * 2 * d + d
+    opt_bytes = n_params * (2 + 2 + 2 + 4 * 4)
+    return (flops / 1e12, flops / BF16_FLOPS_PER_S * 1e3, opt_bytes / 1e9,
+            opt_bytes / HBM_BYTES_PER_S * 1e3)
+
+
+def lm_train_times(card):
+    """The driver's step at its defaults, timed outside it: median ms of
+    LM_TRAIN_REPS steps, tokens/s, and the step's two halves alone (the
+    loss's forward and backward, AdamW); the device busy share and
+    intervals of one step under torch.profiler; the `--grad-compress`
+    step's ms; beside the bounds."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, lm_batch
+    from repro_torch.models.layers import exact_f32
+    from repro_torch.models.lm import model as M
+    from repro_torch.train import grad_compress as GC
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.train_loop import make_train_step, value_and_grad
+
+    cfg = get_config("llama3.2-1b")
+    b, s = 8, 128
+    dev = torch.device("cuda", torch.cuda.current_device())
+    params, _ = M.init_params(cfg, 0, device=dev)
+    opt_cfg = O.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=100)
+    batch = {"tokens": torch.from_numpy(lm_batch(DataConfig(
+        seed=0, vocab=cfg.vocab, seq_len=s, global_batch=b), 0)["tokens"]
+    ).to(dev).long()}
+    state = O.init_state(params)
+    step = make_train_step(cfg, opt_cfg)
+    all_ms = []
+    ms = time_ms(lambda: step(params, state, batch), LM_TRAIN_REPS,
+                 samples=all_ms)
+    prof = profile_steps(lambda: step(params, state, batch))
+
+    def grads_of():
+        with exact_f32():
+            return value_and_grad(lambda q, bb: M.loss_fn(q, cfg, bb),
+                                  params, batch)[2]
+
+    half = LM_TRAIN_REPS // 2
+    grads_ms = time_ms(grads_of, half)
+    grads = grads_of()
+    with torch.no_grad():
+        adamw_ms = time_ms(
+            lambda: O.apply_updates(params, grads, state, opt_cfg), half)
+    del grads
+    step = make_train_step(cfg, opt_cfg, compress=True)
+    err = GC.init_error(params)
+    compress_ms = time_ms(lambda: step(params, state, batch, err),
+                          LM_TRAIN_REPS)
+    del step, err, params, state, batch
+    torch.cuda.empty_cache()
+    tflop, flop_ms, opt_gb, opt_ms = lm_train_bounds(cfg, b, s)
+    print(f"[lm_train] {card}: Llama-3.2-1B full depth bf16 train step, "
+          f"batch {b} x seq {s} ({b * s} tokens): {ms:.4f} ms (median of "
+          f"{LM_TRAIN_REPS} after 3 warm-ups, CUDA events around each step "
+          f"as the host calls it; all "
+          f"{' '.join(f'{t:.3f}' for t in all_ms)}), "
+          f"{b * s / ms * 1e3:.1f} tokens/s; alone, the loss's forward and "
+          f"backward {grads_ms:.4f} ms and AdamW {adamw_ms:.4f} ms (median "
+          f"of {half}); --grad-compress step {compress_ms:.4f} ms; bounds: "
+          f"{tflop:.3f} TFLOP of matmul = {flop_ms:.4f} ms at 989 TFLOP/s, "
+          f"AdamW {opt_gb:.3f} GB = {opt_ms:.4f} ms at 3.35 TB/s; the step "
+          f"at least {flop_ms + opt_ms:.4f} ms")
+    if prof is None:
+        print("[lm_train] torch.profiler reported no device time: busy "
+              "share not measured")
+    else:
+        print(f"[lm_train] one step under torch.profiler: wall "
+              f"{prof['wall_ms']:.3f} ms, device busy {prof['busy_ms']:.3f} "
+              f"ms (share {prof['busy_ms'] / prof['wall_ms']:.4f}; of the "
+              f"unprofiled step {prof['busy_ms'] / ms:.4f}), "
+              f"{prof['intervals']:.0f} device intervals; by family "
+              f"{prof['families']} (cuBLAS's Hopper GEMMs, `nvjet_*`, "
+              f"count as other); top {prof['top']}")
+
+
+def phase_lm_train(card):
+    """LM training on the card: one f32 step card against CPU at
+    Llama-3.2-1B's widths (2 layers) and on the nine other archs, the
+    training driver on full-depth bf16 Llama-3.2-1B with a SIGTERM-stopped
+    run resumed bitwise, the step's times and profile, and no K2-K6
+    launch."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops as K
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    K.reset_launch_counts()
+    bad = lm_train_card_vs_cpu(dev, np.random.default_rng(28), card)
+    torch.cuda.empty_cache()
+    more, peak = lm_train_driver(card)
+    bad += more
+    torch.cuda.empty_cache()
+    lm_train_times(card)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    print(f"[lm_train] K2-K6 launches on the LM training path: {counts} "
+          f"(must all be 0: the JAX LM trains through no Pallas kernel)")
+    if any(counts.values()):
+        bad.append(f"kernel launches {counts}")
+    print(f"[lm_train] peak memory of the driver's run {peak:.3f} GiB; "
+          f"phase {time.perf_counter() - t_phase:.1f} s")
+    if bad:
+        raise SystemExit(f"[lm_train] failed: {'; '.join(bad)}")
+
+
 def busy_ms(events) -> float:
     """Length of the union of the device-side intervals (kernels, copies,
     memsets) among a profile's events, in ms. The CPU ops' rows also carry
@@ -2663,6 +3011,7 @@ def main() -> int:
     phase_throughput(imgs, card)
     lm_rows, lm_launches = phase_lm(card)  # the LM entry points' counts
     phase_lm_serve(card)
+    phase_lm_train(card)
     phase_stream(card)
     phase_fixed_point(imgs, card)
     launches = phase_fleet(card)  # the serving path: both nets

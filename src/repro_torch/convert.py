@@ -8,8 +8,12 @@ object by attribute only and imports nothing of the JAX package.
 `params_from_reference` carries a float parameter tree (the JAX package's
 `{op: {"w", "b"[, "bn": {...}]}}`, as arrays) onto a device as the port's
 tensors, with the same names and layouts; `params_to_reference` is the way
-back (numpy arrays). `observers_from_reference` rebuilds calibration
-observers (`ActObserver`s) the same way.
+back (numpy arrays). It also carries the gradient-compression residuals
+(`train/grad_compress.init_error`'s tree). `opt_state_from_reference`
+carries an AdamW state: the step, and `m` and `v` mirroring the
+parameters (8-bit state: `{"q", "scale"[, "zero"]}` dicts in a trained
+leaf's place; a frozen leaf's float32 scalar). `observers_from_reference`
+rebuilds calibration observers (`ActObserver`s) the same way.
 
 `lm_from_reference` carries LM tensors across: a quantized linear (the
 `{"w_q", "scale"}` dict `init_linear` builds, or the `(w_q, scale)` tuple
@@ -27,6 +31,7 @@ from repro_torch.core import graph as G
 from repro_torch.core.calibrate import ActObserver
 from repro_torch.core.cu import resolve_device
 from repro_torch.core.qnet import QNet, QOp
+from repro_torch.train.optimizer import AdamWState
 
 
 def _op_spec(op) -> G.OpSpec:
@@ -102,6 +107,15 @@ def params_to_reference(tree):
     return tree.detach().cpu().numpy()
 
 
+def opt_state_from_reference(state, device=None) -> AdamWState:
+    """The JAX package's `AdamWState` (its fields read by name) as the
+    port's, on `device` (CUDA unless named)."""
+    dev = resolve_device(device)
+    return AdamWState(step=_tensor(state.step, dev),
+                      m=params_from_reference(state.m, dev),
+                      v=params_from_reference(state.v, dev))
+
+
 def observers_from_reference(observers, device=None):
     """{name: ActObserver} of the JAX package (arrays in `min_val`,
     `max_val`, a `momentum`) as the port's observers on `device`."""
@@ -136,4 +150,5 @@ def lm_from_reference(src, device=None):
 
 __all__ = ["qnet_from_reference", "netspec_from_reference",
            "params_from_reference", "params_to_reference",
+           "opt_state_from_reference",
            "observers_from_reference", "lm_from_reference"]

@@ -1,27 +1,36 @@
-"""LM model assembly: init / forward / prefill / decode per family.
+"""LM model assembly: init / train forward / loss / prefill / decode per
+family.
 
 Counterpart of `repro/models/lm/model.py`. Head = embedding (+ modality
 frontend stub), Body = the repeated block run over stacked layer
 parameters, Tail = final norm, Classifier = the LM head. Stacked layer
 parameters and caches keep the JAX trees' leading `[L, ...]` axis, so a
 JAX tree converts one to one; the JAX model's `lax.scan` over that axis is
-a Python loop here (`_remat`, a training option, is left out). `prefill`
-and `decode_step` update the caches in place, each layer in its slot of
-the stacked tensors, and return them: a decode step writes one position
-of the KV cache, not a copy of it.
+a Python loop here. On the training path each (super-)block of that loop,
+and each encoder and decoder layer of the enc-dec archs, runs under
+`_remat` (`cfg.remat`): activation checkpointing, which changes memory,
+never numbers. `prefill` and `decode_step` update the caches in place,
+each layer in its slot of the stacked tensors, and return them: a decode
+step writes one position of the KV cache, not a copy of it.
 
 Every init returns (params, logical), logical mirroring params with tuples
 of logical axis names; stacked layer params get a leading `None`.
 
 Entry points that make tensors (`init_params`, `init_cache`) run on CUDA
-unless the caller names a device; the forward functions run where their
-inputs lie.
+unless the caller names a device; the forward functions and `loss_fn` run
+where their inputs lie.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.core.cu import resolve_device
 from repro_torch.models.lm import common as C
@@ -266,26 +275,65 @@ def init_params(cfg: LMConfig, seed: int = 0,
 # ---------------------------------------------------------------------------
 
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """`checkpoint_dots_with_no_batch_dims`: keep the products without a
+    batch axis (the linears, `aten.mm`/`addmm`), recompute the rest (the
+    attention and expert einsums, which reach `aten.bmm`, included)."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, cfg: LMConfig):
+    """`fn` under activation checkpointing as `cfg.remat` asks: "full"
+    keeps only its inputs and recomputes the body in the backward pass,
+    "dots" also keeps its matmul outputs (`_save_dots`), "none" keeps
+    every activation. Without autograd recording the body runs as it is."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"remat must be none, full or dots: {cfg.remat!r}")
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return run
+
+
 def _run_stack(params, x, cfg, positions, *, caches=None, cache_pos=None):
     """Run the (super-)block stack. caches: tree aligned with the layers,
-    updated in place, or None. Returns (x, caches, aux_sum)."""
+    updated in place, or None (training: each super-block under
+    `_remat`). Returns (x, caches, aux_sum)."""
     pat, n_super, tail = _kind_groups(layer_kinds(cfg))
+
+    def super_block(layer_p, x, aux, layer_c):
+        if len(pat) == 1:
+            x, new_c, a = _apply_layer(layer_p, x, cfg, pat[0], positions,
+                                       cache=layer_c, cache_pos=cache_pos)
+            return x, aux + a, new_c
+        new_c = {}
+        for i, kind in enumerate(pat):
+            ci = layer_c[f"l{i}"] if layer_c is not None else None
+            x, new_c[f"l{i}"], a = _apply_layer(
+                layer_p[f"l{i}"], x, cfg, kind, positions, cache=ci,
+                cache_pos=cache_pos)
+            aux = aux + a
+        return x, aux, new_c
+
+    body = super_block if caches is not None else _remat(super_block, cfg)
     aux = torch.zeros((), dtype=F32, device=x.device)
     for j in range(n_super):
         layer_p = _index(params["layers"], j)
         layer_c = _index(caches["layers"], j) if caches is not None else None
-        if len(pat) == 1:
-            x, new_c, a = _apply_layer(layer_p, x, cfg, pat[0], positions,
-                                       cache=layer_c, cache_pos=cache_pos)
-            aux = aux + a
-        else:
-            new_c = {}
-            for i, kind in enumerate(pat):
-                ci = layer_c[f"l{i}"] if layer_c is not None else None
-                x, new_c[f"l{i}"], a = _apply_layer(
-                    layer_p[f"l{i}"], x, cfg, kind, positions, cache=ci,
-                    cache_pos=cache_pos)
-                aux = aux + a
+        x, aux, new_c = body(layer_p, x, aux, layer_c)
         if caches is not None:
             _write(layer_c, new_c)
     for i, kind in enumerate(tail):
@@ -335,9 +383,13 @@ def _encode(params, cfg: LMConfig, enc_inputs):
     """The encoder stack over precomputed frames -> normed memory."""
     enc_x = enc_inputs.to(C.dt(cfg))  # [B, S_enc, D]
     positions = torch.arange(enc_x.shape[1], device=enc_x.device)
+
+    def enc_layer(layer_p, x):
+        return _apply_layer(layer_p, x, cfg, "enc", positions)[0]
+
+    enc_layer = _remat(enc_layer, cfg)
     for j in range(cfg.n_enc_layers):
-        enc_x, _, _ = _apply_layer(_index(params["enc"], j), enc_x, cfg,
-                                   "enc", positions)
+        enc_x = enc_layer(_index(params["enc"], j), enc_x)
     return C.rms_norm(enc_x, params["ln_enc"], cfg.norm_eps)
 
 
@@ -345,11 +397,37 @@ def _encdec_forward(params, cfg: LMConfig, tokens, enc_inputs):
     memory = _encode(params, cfg, enc_inputs)
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
+
+    def dec_layer(layer_p, x):
+        return _apply_layer(layer_p, x, cfg, "dec", positions,
+                            memory=memory)[0]
+
+    dec_layer = _remat(dec_layer, cfg)
     for j in range(cfg.n_dec_layers):
-        x, _, _ = _apply_layer(_index(params["dec"], j), x, cfg, "dec",
-                               positions, memory=memory)
+        x = dec_layer(_index(params["dec"], j), x)
     return (logits_from_hidden(params, cfg, x),
             torch.zeros((), dtype=F32, device=x.device))
+
+
+def loss_fn(params, cfg: LMConfig, batch):
+    """Next-token cross-entropy plus 0.01 x the MoE load-balancing loss.
+    batch: dict(tokens [B, S] integer [, embeds, enc_inputs]).
+
+    The JAX loss contracts the log-probabilities with a one-hot of the
+    targets (to keep its vocab axis sharded); a gather of the target's
+    log-probability is the same number, since every other term of that
+    sum is an exact zero, and it saves a [B, S, V] float32 tensor."""
+    tokens = batch["tokens"]
+    logits, aux = forward_train(
+        params, cfg, tokens,
+        embeds=batch.get("embeds"), enc_inputs=batch.get("enc_inputs"))
+    # predict tokens[:, 1:] from logits[:, :-1] (vlm: the last S positions)
+    if cfg.family == "vlm" and batch.get("embeds") is not None:
+        logits = logits[:, -tokens.shape[1]:]
+    lp = torch.log_softmax(logits[:, :-1].to(F32), dim=-1)
+    tgt = tokens[:, 1:].long()
+    ll = torch.gather(lp, -1, tgt[..., None])[..., 0]
+    return -ll.mean() + 0.01 * aux
 
 
 # ---------------------------------------------------------------------------
@@ -498,7 +576,7 @@ def _encdec_decode(params, cfg, token, caches, pos: int):
 
 
 __all__ = [
-    "init_params", "forward_train", "init_cache", "prefill", "decode_step",
-    "layer_kinds", "cache_logical", "padded_vocab", "embed_tokens",
-    "logits_from_hidden", "tree_map",
+    "init_params", "forward_train", "loss_fn", "init_cache", "prefill",
+    "decode_step", "layer_kinds", "cache_logical", "padded_vocab",
+    "embed_tokens", "logits_from_hidden", "tree_map",
 ]

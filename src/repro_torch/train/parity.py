@@ -45,6 +45,11 @@ from any state; the notes say where and why they differ:
     1e-5, atol 1e-5 times the leaf's largest magnitude;
   * observers after a round (the BN-fused float forward's ranges): rtol
     1e-5, atol 1e-5 times the larger of the range's magnitudes.
+
+`lm_step_errors` measures how far one LM train step went apart on two
+sides (the JAX package's and the port's on the CPU in the tests, the CPU
+and the card in `chip_smoke.py`), and `lm_step_failures` holds those
+numbers to the `LM_*` bounds, the same on both uses.
 """
 from __future__ import annotations
 
@@ -312,4 +317,135 @@ def verify_train_steps(cfg: V.VisionTrainConfig, device=None
     return {"steps": steps, "rounds": rounds, "failures": fail}
 
 
-__all__ = ["verify_train_steps"]
+# ---------------------------------------------------------------------------
+# the LM train step (`train_loop.make_train_step(cfg)`), one step from one
+# state on two sides: the JAX package's and the port's on the CPU (the
+# tests), the port's on the CPU and on the card (`chip_smoke.py`)
+# ---------------------------------------------------------------------------
+
+# float32 bounds, each measured first on the reduced configs (the JAX
+# package against the port on the CPU) and at Llama-3.2-1B's widths (the
+# card against the CPU):
+LM_LOSS_RTOL = 1e-5  # loss, grad_norm (measured at most 1.6e-7)
+LM_GRAD_L2 = 1e-4  # each gradient leaf's relative L2 distance (2.6e-6)
+LM_MOMENT_L2 = 2e-4  # each m and v leaf's, v about g squared (4.4e-6)
+LM_SURE_EPS = 1e3  # "sure": |clipped g| above this many Adam eps, both sides
+# updated params there, in units of lr: JAX against the port on the CPU
+# (3.05e-5, one float32 ulp of a parameter near 0.25) and the card against
+# the CPU (1.22e-4 at full width, one ulp of a norm scale of 1) ...
+LM_PARAM_SURE = 1.5e-4
+LM_PARAM_SURE_CARD = 5e-4
+LM_PARAM_LR = 2.0  # ... and everywhere (a fresh Adam moves each by ~lr)
+
+
+def _as_tensor(x, dev) -> torch.Tensor:
+    """A torch tensor or an array (JAX, numpy) as a tensor on `dev`,
+    floating values in float64 (bf16 exactly), integers as they are."""
+    if not isinstance(x, torch.Tensor):
+        a = np.asarray(x)
+        x = torch.from_numpy(np.array(
+            a.astype(np.float32) if a.dtype.name == "bfloat16" else a))
+    x = x.detach().to(dev)
+    return x.to(torch.float64) if x.is_floating_point() else x
+
+
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    """|b - a| / |a| in L2 (float64 tensors) over the elements that are
+    not NaN on both sides (inf where a NaN stands on one side only)."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    if not torch.equal(na, nb):
+        return float("inf")
+    a, b = a[~na], b[~na]
+    den = float(torch.linalg.vector_norm(a))
+    num = float(torch.linalg.vector_norm(b - a))
+    return num / den if den > 0 else float(num > 0) * float("inf")
+
+
+def lm_step_errors(before, want: Dict[str, Any], got: Dict[str, Any],
+                   opt_cfg: O.AdamWConfig, device="cpu") -> Dict[str, Any]:
+    """How far one train step from the parameters `before` went apart on
+    two sides. `want` and `got` hold `loss`, `grad_norm`, `lr` (numbers)
+    and the trees `grads`, `params` (after the step), `m` and `v` (8-bit
+    moments dequantized), in the reference's leaf order; leaves are torch
+    tensors or arrays, compared in float64 on `device`. Returns the
+    largest relative error of the loss and grad norm, `lr`'s absolute
+    one, the worst leaf's relative L2 distance of the gradients and of the
+    moments (`worst_grad`, `worst_moment` name the leaves), the updated
+    params' distance in units of lr where the clipped gradient is sure on
+    both sides (`params_sure`, Adam's first step moves them by lr g / (|g|
+    + eps)) and everywhere (`params`), and the sure share of the trained
+    elements. Integer leaves must be equal. A NaN must stand on both sides
+    (`nan` counts the updated parameters that are NaN on both; one side's
+    alone counts as inf): the 8-bit state of both packages turns a
+    parameter whose first gradient is exactly 0 into NaN (ROADMAP F9)."""
+    names = _leaf_names(before)
+    lr = float(want["lr"])
+    clip = {k: min(1.0, opt_cfg.grad_clip / max(float(d["grad_norm"]), 1e-9))
+            if opt_cfg.grad_clip else 1.0 for k, d in (("w", want),
+                                                       ("g", got))}
+    out = {"loss": abs(float(got["loss"]) - float(want["loss"]))
+           / abs(float(want["loss"])),
+           "grad_norm": abs(float(got["grad_norm"]) - float(want["grad_norm"]))
+           / abs(float(want["grad_norm"])),
+           "lr": abs(float(got["lr"]) - lr), "grads": 0.0, "moments": 0.0,
+           "params_sure": 0.0, "params": 0.0, "frozen_equal": True, "nan": 0,
+           "worst_grad": "", "worst_moment": ""}
+    n_sure = n_all = 0
+    leaves = zip(names, T.leaves(before), *(
+        T.leaves(d[k]) for d in (want, got) for k in ("grads", "params")),
+        *(T.leaves(d[k]) for k in ("m", "v") for d in (want, got)))
+    with torch.no_grad():
+        for name, p0, gw, pw, gg, pg, mw, mg, vw, vg in leaves:
+            p0, pw, pg = (_as_tensor(x, device) for x in (p0, pw, pg))
+            if not p0.is_floating_point():
+                out["frozen_equal"] &= bool(torch.equal(pw, pg)
+                                            and torch.equal(pw, p0))
+                continue
+            gw, gg = _as_tensor(gw, device), _as_tensor(gg, device)
+            e = _rel_l2(gw, gg)
+            if e > out["grads"]:
+                out["grads"], out["worst_grad"] = e, name
+            for tag, a, b in ((f"{name} m", mw, mg), (f"{name} v", vw, vg)):
+                e = _rel_l2(_as_tensor(a, device), _as_tensor(b, device))
+                if e > out["moments"]:
+                    out["moments"], out["worst_moment"] = e, tag
+            both = torch.isnan(pw) & torch.isnan(pg)
+            out["nan"] += int(both.sum())
+            d = (pg - pw).abs() / lr
+            d[both] = 0.0
+            d[torch.isnan(d)] = float("inf")  # a NaN on one side only
+            out["params"] = max(out["params"], float(d.max()))
+            cw, cg = gw * clip["w"], gg * clip["g"]
+            lim = LM_SURE_EPS * opt_cfg.eps
+            sure = (cw.abs() > lim) & (cg.abs() > lim) \
+                & (torch.sign(cw) == torch.sign(cg))
+            if sure.any():
+                out["params_sure"] = max(out["params_sure"],
+                                         float(d[sure].max()))
+            n_sure += int(sure.sum())
+            n_all += sure.numel()
+    out["sure_share"] = n_sure / max(n_all, 1)
+    return out
+
+
+def lm_step_failures(err: Dict[str, Any],
+                     moment_l2: float = LM_MOMENT_L2,
+                     params_sure: float = LM_PARAM_SURE) -> List[str]:
+    """The bounds `lm_step_errors`' numbers broke (the moments' bound is
+    the caller's for 8-bit state, the sure params' LM_PARAM_SURE_CARD for
+    the card against the CPU)."""
+    fail = []
+    for key, lim in (("loss", LM_LOSS_RTOL), ("grad_norm", LM_LOSS_RTOL),
+                     ("grads", LM_GRAD_L2), ("moments", moment_l2),
+                     ("params_sure", params_sure),
+                     ("params", LM_PARAM_LR)):
+        if not err[key] <= lim:
+            fail.append(f"{key} {err[key]:.3g} > {lim}")
+    if err["lr"] != 0.0:
+        fail.append(f"lr {err['lr']:.3g} apart")
+    if not err["frozen_equal"]:
+        fail.append("an integer leaf changed")
+    return fail
+
+
+__all__ = ["verify_train_steps", "lm_step_errors", "lm_step_failures"]

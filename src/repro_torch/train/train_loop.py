@@ -1,10 +1,16 @@
-"""Train-step builder: microbatched gradients + AdamW.
+"""Train-step builder: microbatched gradients + AdamW (+ int8 gradient
+compression).
 
-Counterpart of `repro/train/train_loop.py` for a caller-supplied loss (the
-vision trainer's). `make_train_step(opt_cfg, loss_fn=, grad_accum=,
-has_aux=)` returns
+Counterpart of `repro/train/train_loop.py`, with its signature less
+`accum_dtype` (only the reference's dry-run plans set it; the port has
+no dry-run, so accumulation is float32): `make_train_step(cfg, opt_cfg,
+grad_accum=, loss_fn=, compress=, has_aux=)` returns
 
     train_step(params, opt_state, batch) -> (params, opt_state, metrics)
+
+(with `compress`: `train_step(params, opt_state, batch, err_state) ->
+(params, opt_state, err_state, metrics)`), for the LM's loss (`cfg`) or a
+caller's (`loss_fn`, the vision trainer's).
 
 Microbatches are contiguous slices of the batch (the reference's
 `_split_microbatches` reshape), gradients accumulate in float32 in
@@ -12,17 +18,21 @@ microbatch order and are scaled by 1 / grad_accum, and aux values (the BN
 batch moments) are averaged the same way. The step runs inside
 `layers.exact_f32()`: float32 without TF32 and deterministic cuDNN, so a
 restart from a checkpoint repeats the straight run bit for bit on the card.
-
-Not ported yet: the LM loss (the reference's `cfg`, ROADMAP queue 1 item
-12) and gradient compression (`compress=`, item 11).
+Only floating-point leaves get gradients; integer leaves (the W8/W4 `w_q`
+codes) get zeros, which the optimizer holds. The reference's own step
+refuses such trees (`jax.grad` takes no int8 input).
 """
 from __future__ import annotations
 
-from typing import Callable
+import functools
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch.models.layers import exact_f32
+from repro_torch.models.lm import model as M
+from repro_torch.models.lm.config import LMConfig
+from repro_torch.train import grad_compress as GC
 from repro_torch.train import optimizer as O
 from repro_torch.train import tree as T
 
@@ -58,14 +68,25 @@ def value_and_grad(loss_fn: Callable, params, batch, has_aux: bool = False):
 
 
 def make_train_step(
+    cfg: Optional[LMConfig],
     opt_cfg: O.AdamWConfig,
-    *,
-    loss_fn: Callable,
     grad_accum: int = 1,
+    loss_fn: Optional[Callable] = None,
+    compress: bool = False,
     has_aux: bool = False,
 ):
-    """`loss_fn(params, batch) -> loss` (or `(loss, aux)` with `has_aux`);
-    the aux tree is microbatch-averaged into metrics['aux']."""
+    """The reference's signature. `cfg` alone trains the LM's next-token
+    loss (`models/lm/model.loss_fn`); `cfg=None` needs `loss_fn(params,
+    batch) -> loss` (or `(loss, aux)` with `has_aux`; the vision trainer
+    passes its own), and the aux tree is microbatch-averaged into
+    metrics['aux']. With `compress` the gradients pass through int8
+    compression with error feedback (`train/grad_compress.py`) and the
+    step is `train_step(params, opt_state, batch, err_state) -> (params,
+    opt_state, err_state, metrics)`."""
+    if loss_fn is None:
+        if cfg is None:
+            raise ValueError("need an LMConfig or an explicit loss_fn")
+        loss_fn = functools.partial(_lm_loss, cfg)
 
     def grads_of(params, batch):
         if grad_accum == 1:
@@ -87,18 +108,36 @@ def make_train_step(
                     if has_aux else None)
         return loss_sum * inv, aux_mean, T.tree_map(lambda g: g * inv, acc)
 
-    def train_step(params, opt_state, batch):
+    def train_step(params, opt_state, batch, err_state=None):
         with exact_f32():
             loss, aux, grads = grads_of(params, batch)
             with torch.no_grad():
+                if compress:
+                    grads, err_state = GC.compress_tree(grads, err_state)
                 params, opt_state, metrics = O.apply_updates(
                     params, grads, opt_state, opt_cfg)
         metrics = dict(metrics, loss=loss)
         if has_aux:
             metrics["aux"] = aux
+        if compress:
+            return params, opt_state, err_state, metrics
         return params, opt_state, metrics
 
     return train_step
 
 
-__all__ = ["make_train_step", "value_and_grad"]
+def _lm_loss(cfg: LMConfig, params, batch):
+    return M.loss_fn(params, cfg, batch)
+
+
+def make_eval_step(cfg: LMConfig):
+    """`eval_step(params, batch) -> loss`: the LM's loss without
+    gradients."""
+    def eval_step(params, batch):
+        with exact_f32(), torch.no_grad():
+            return M.loss_fn(params, cfg, batch)
+
+    return eval_step
+
+
+__all__ = ["make_train_step", "make_eval_step", "value_and_grad"]

@@ -265,8 +265,8 @@ def make_vision_train_step(
     statistics and folds the microbatch-averaged moments into the running
     stats by EMA after the optimizer update."""
     loss_fn = vision_loss(net, qat=qat, bn_batch=bn_batch)
-    base = make_train_step(opt_cfg, loss_fn=loss_fn, grad_accum=grad_accum,
-                           has_aux=bn_batch)
+    base = make_train_step(None, opt_cfg, loss_fn=loss_fn,
+                           grad_accum=grad_accum, has_aux=bn_batch)
     if not bn_batch:
         return base
 

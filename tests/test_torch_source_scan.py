@@ -2,7 +2,8 @@
 `chip_smoke.py`, imports JAX or the JAX package, and every entry point
 (the streaming engine, fixed-point inference, the multi-model router, the
 energy model's default power curve, the vision trainer, its export and its
-CLI, the LM's init, cache and `Engine` and the LM serving CLI included)
+CLI, the LM's init, cache and `Engine`, the LM serving CLI, the LM
+training CLI and the AdamW state's carrier included)
 called without `device=` (or `backend=`) on a machine without CUDA raises
 instead of running on the CPU."""
 import ast
@@ -13,10 +14,11 @@ import pytest
 import torch
 
 from repro_torch.configs import reduced_config
-from repro_torch.convert import lm_from_reference
+from repro_torch.convert import lm_from_reference, opt_state_from_reference
 from repro_torch.core import cu, qnet as Q
 from repro_torch.energy import default_power_model, estimate_energy
 from repro_torch.launch import serve as serve_cli
+from repro_torch.launch import train as lm_train_cli
 from repro_torch.launch import train_vision as train_cli
 from repro_torch.models import layers
 from repro_torch.models.lm import model as LM
@@ -27,6 +29,7 @@ from repro_torch.serve.vision import (
     VisionEngine,
     compile_stages,
 )
+from repro_torch.train import optimizer as PO
 from repro_torch.train import vision as V
 from tests.regen_golden import fixture_paths
 
@@ -61,7 +64,9 @@ def test_port_files_found():
                 "train/parity.py", "launch/train_vision.py",
                 "models/lm/model.py", "models/lm/moe.py",
                 "models/lm/mamba2.py", "models/lm/rglru.py",
-                "configs/registry.py", "serve/engine.py"):
+                "configs/registry.py", "serve/engine.py",
+                "train/grad_compress.py", "train/straggler.py",
+                "launch/train.py"):
         assert ROOT / "src" / "repro_torch" / rel in PORT_FILES
 
 
@@ -87,7 +92,8 @@ def test_no_jax_or_reference_import(path):
                                    "train_vision CLI",
                                    "train_vision --check-artifact",
                                    "Engine", "init_params", "init_cache",
-                                   "LM serve CLI"])
+                                   "LM serve CLI", "LM train CLI",
+                                   "opt_state_from_reference"])
 def test_entry_points_refuse_to_run_without_cuda(entry, monkeypatch):
     path = fixture_paths("mobilenet_v2", 8)[0]
     qnet = Q.load_qnet(path)
@@ -127,6 +133,11 @@ def test_entry_points_refuse_to_run_without_cuda(entry, monkeypatch):
             "init_params": lambda: LM.init_params(lm),
             "init_cache": lambda: LM.init_cache(lm, 1, 8),
             "LM serve CLI":
-                lambda: serve_cli.main(["--reduced", "--requests", "1"])}[entry]
+                lambda: serve_cli.main(["--reduced", "--requests", "1"]),
+            "LM train CLI":
+                lambda: lm_train_cli.main(["--reduced", "--steps", "1"]),
+            "opt_state_from_reference":
+                lambda: opt_state_from_reference(
+                    PO.AdamWState(np.zeros((), np.int32), {}, {}))}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()

@@ -406,7 +406,7 @@ def test_microbatches_split_as_the_reference():
     loss_fn = PV.vision_loss(pnet, qat=False, bn_batch=True)
     parts = [PTL.value_and_grad(loss_fn, params, mb, has_aux=True)
              for mb in mine]
-    step = PTL.make_train_step(PO.AdamWConfig(), loss_fn=loss_fn,
+    step = PTL.make_train_step(None, PO.AdamWConfig(), loss_fn=loss_fn,
                                grad_accum=2, has_aux=True)
     _, _, metrics = step(params, PO.init_state(params), pb)
     assert float(metrics["loss"]) == float((parts[0][0] + parts[1][0]) * 0.5)

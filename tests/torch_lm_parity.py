@@ -61,11 +61,11 @@ def one_torch_thread():
     torch.set_num_threads(prev)
 
 
-def jax_compiled(fn, *args):
+def jax_compiled(fn, *args, options=COMPILER_OPTIONS):
     """`fn(*args)` (arrays, trees of arrays) compiled without excess
-    precision; returns (the compiled program, its outputs)."""
-    prog = jax.jit(fn).lower(*args).compile(
-        compiler_options=COMPILER_OPTIONS)
+    precision (or with the compiler `options` given); returns (the
+    compiled program, its outputs)."""
+    prog = jax.jit(fn).lower(*args).compile(compiler_options=options)
     return prog, prog(*args)
 
 
