@@ -166,6 +166,31 @@ last line:
      the card's draw at rest and under a dense int8 matmul loop (the
      median of 100 ms samples over 6 s each) beside
      `BACKEND_WATTS["cuda"]`;
+  9a. replicas: data-parallel replicas (`dist/sharding.py`'s `data_mesh`)
+     on the one card. `VisionEngine(mesh=data_mesh(1))` serves the
+     MobileNetV2 fixture's 8 images at buckets 1/2/4/8: 0 of 8000 logits
+     may differ from the JAX package's, and the launches must be
+     `[serve]`'s. Two replicas of the card (`data_mesh(2, devices=[cuda:0,
+     cuda:0])`) serve both `[fleet]` fixtures' images twice over (16
+     requests each; buckets asked (1, 3, 4), rounded up to (2, 4)): 0
+     logits may differ, `EngineStats.replicas` must be 2, each replica's
+     constants must be its own storage, and a micro-batch must launch 2 x
+     one replica's kernels at half the rows (K4 by variant from
+     `fused_irb.plan` at those rows). Closed loops (REPLICA_LOOP_S, 2 in
+     turns) without a mesh, on a one-replica mesh and on two replicas:
+     FPS and p50, reported, not gated. The serving CLI with `--vision
+     --replicas 1` (both nets) must serve every request, and with
+     `--replicas 2` must be refused with JAX's `replicas=2 with 1 visible
+     devices` where one card is visible. Full-depth bf16 Llama-3.2-1B
+     (seeded weights, the data stream's first two 8 x 128 batches):
+     `dist/pp.make_pp_loss` with 2 stages of 8 layers on [cuda:0, cuda:0]
+     at n_micro 2 and 4, its loss and every gradient leaf against the
+     plain `loss_fn` (`train/parity.py`'s bf16 bounds), the wq gradient
+     reaching both stages, ms beside the plain call's and the matmul
+     bound; `compressed_psum` over two replicas of the card, each with
+     its own batch's gradients and the residual a first all-reduce left:
+     every summed and residual value bit for bit its plain version's on
+     the CPU, ms beside the bytes bound. Prints the phase's seconds;
  10. train: the training front end (`repro_torch.train.vision`) on the
      card. MobileNetV2 at the paper's full width (alpha 1.0, 224x224x3,
      1000 classes, w8/a8, BN, batch 32, 2 float + 2 QAT steps, an
@@ -1503,6 +1528,311 @@ def phase_fleet(card):
     return counts
 
 
+REPLICA_LOOP_S = 1.5  # a closed-loop run of [replicas]
+PP_STAGES, PP_MICRO = 2, (2, 4)  # [replicas]' pipeline on the one card
+PP_BATCH, PP_SEQ = 8, 128
+
+
+def replicated_serve(tag, q, imgs, want, mesh, buckets, want_buckets):
+    """A `VisionEngine(mesh=)` serves `imgs` with the launch counters set to
+    0 just before the run and read just after: the logits must equal
+    `want`, the buckets `want_buckets`, and the K2-K4 launches (K4 by
+    variant, from `fused_irb.plan` at a replica's rows) the replicas times
+    one replica's at its rows. Returns (engine, launch counts, K4 by
+    variant)."""
+    import numpy as np
+
+    from repro_torch.kernels import ops as K
+    from repro_torch.kernels.fused_irb import fused_irb_q
+    from repro_torch.serve.vision import VisionEngine
+
+    eng = VisionEngine(q, mesh=mesh, buckets=buckets)
+    eng.warmup()
+    rids = [eng.submit(img) for img in imgs]
+    K.reset_launch_counts()
+    res = eng.run()
+    counts, variants = K.launch_counts(), dict(fused_irb_q.variants)
+    st = eng.stats()
+    rows = eng.buckets[-1] // eng.replicas
+    per, per_var = tuned_launches(eng, rows)
+    n = st.micro_batches * eng.replicas
+    expect = {k: v * n for k, v in per.items()}
+    expect_var = {k: v * n for k, v in per_var.items()}
+    logits = np.stack([res[r].logits for r in rids])
+    n_diff = int(np.sum(logits != want))
+    print(f"{tag}: {len(rids)} images over {eng.replicas} replica(s) "
+          f"{mesh}, buckets {eng.buckets} (asked {tuple(buckets)}), "
+          f"{st.micro_batches} micro-batches of {eng.buckets[-1]} rows: "
+          f"{n_diff} of {logits.size} logits differ from the JAX package's; "
+          f"launch counts {counts}, fused_irb_q by variant {variants}; "
+          f"expected {st.micro_batches} x {eng.replicas} replicas x "
+          f"{ {k: v for k, v in per.items() if v} } at {rows} rows a "
+          f"replica, by variant {per_var}; EngineStats.replicas "
+          f"{st.replicas}")
+    if (n_diff or counts != expect or variants != expect_var
+            or eng.buckets != tuple(want_buckets)
+            or st.replicas != eng.replicas):
+        raise SystemExit(f"{tag}: logits, launches, buckets or replicas "
+                         f"are not as expected")
+    return eng, counts, variants
+
+
+def replicas_vision(card, dev):
+    """Vision serving over a mesh: one replica (the [serve] path), two
+    replicas of the one card (both nets), each replica's constants its own
+    storage, and closed loops without a mesh, on a one-replica mesh and on
+    two replicas, in turns."""
+    import numpy as np
+
+    from repro_torch.core import cu
+    from repro_torch.core.qnet import load_qnet
+    from repro_torch.dist.sharding import data_mesh
+    from repro_torch.serve.vision import VisionEngine
+
+    qnets = {m: load_qnet(base + ".qnet") for m, (base, _) in FLEET.items()}
+    imgs = {m: images(hw) for m, (_, hw) in FLEET.items()}
+    want = {m: np.load(base + ".npz")["logits"]
+            for m, (base, _) in FLEET.items()}
+    one = data_mesh(1)
+    two = data_mesh(2, devices=[dev, dev])
+    eng, counts, variants = replicated_serve(
+        "[replicas] mobilenet_v2 on a 1-replica mesh",
+        qnets["mobilenet_v2"], imgs["mobilenet_v2"], want["mobilenet_v2"],
+        one, (1, 2, 4, 8), (1, 2, 4, 8))
+    mb = eng.stats().micro_batches
+    if (counts != {k: v * mb for k, v in EXPECTED_LAUNCHES.items()}
+            or variants != {k: v * mb
+                            for k, v in EXPECTED_IRB_VARIANTS.items()}):
+        raise SystemExit(f"[replicas] one replica's launches {counts}, "
+                         f"{variants} are not [serve]'s")
+    for m in FLEET:
+        eng = replicated_serve(
+            f"[replicas] {m} on 2 replicas of the card", qnets[m],
+            np.concatenate([imgs[m]] * 2), np.concatenate([want[m]] * 2),
+            two, (1, 3, 4), (2, 4))[0]
+        pq = eng.stages[0].pq
+        shared = [n for n in pq.ops if pq.replicas[0].ops[n].w_acc.data_ptr()
+                  == pq.replicas[1].ops[n].w_acc.data_ptr()]
+        print(f"[replicas] {m}: {len(pq.ops)} ops' constants, each "
+              f"replica its own storage (data_ptr): {not shared}")
+        if not isinstance(pq, cu.ReplicatedQNet) or shared:
+            raise SystemExit(f"[replicas] {m}: replicas share constants "
+                             f"{shared[:3]}")
+    q, x = qnets["mobilenet_v2"], imgs["mobilenet_v2"]
+    engines = {"no mesh": VisionEngine(q, device=dev, buckets=(1, 2, 4, 8)),
+               "1-replica mesh": VisionEngine(q, mesh=one,
+                                              buckets=(1, 2, 4, 8)),
+               "2 replicas, one card": VisionEngine(q, mesh=two,
+                                                    buckets=(1, 2, 4, 8))}
+    runs = {k: [] for k in engines}
+    for eng in engines.values():
+        eng.warmup()
+    for _ in range(2):
+        for k, eng in engines.items():
+            runs[k].append(closed_loop(eng, x, REPLICA_LOOP_S))
+    for k, rs in runs.items():
+        print(f"[replicas] {card}: mobilenet_v2 closed loop, {k} (buckets "
+              f"{engines[k].buckets}): FPS "
+              f"{' '.join(f'{r[0]:.1f}' for r in rs)}, p50 ms "
+              f"{' '.join(f'{r[1] * 1e3:.3f}' for r in rs)} ({len(rs)} "
+              f"runs of {REPLICA_LOOP_S} s in turns; reported, not gated: "
+              f"two replicas of one card measure the host cost of a "
+              f"replica, not scaling)")
+
+
+def replicas_cli():
+    """`launch/serve.py --vision --replicas 1` serves both nets;
+    `--replicas 2` is refused where one card is visible."""
+    from repro_torch.launch import serve as serve_cli
+
+    argv = ["--vision", "--models", "mobilenet_v2,efficientnet_compact",
+            "--requests", "8"]
+    out = serve_cli.main(argv + ["--replicas", "1"])
+    ok = all(r.status == "ok" for r in out["results"].values())
+    print(f"[replicas] serve CLI --replicas 1: {len(out['results'])} "
+          f"requests, all ok {ok}, replicas "
+          f"{ {m: st.replicas for m, st in out['stats'].items()} }")
+    if not ok or len(out["results"]) != 8:
+        raise SystemExit("[replicas] the CLI with --replicas 1 failed")
+    import torch
+    try:
+        out = serve_cli.main(argv + ["--replicas", "2"])
+    except ValueError as e:
+        print(f"[replicas] serve CLI --replicas 2 on "
+              f"{torch.cuda.device_count()} visible card(s): refused: {e}")
+        if torch.cuda.device_count() != 1 or \
+                str(e) != "replicas=2 with 1 visible devices":
+            raise SystemExit("[replicas] the wrong refusal") from e
+        return
+    if torch.cuda.device_count() < 2 or not all(
+            st.replicas == 2 for st in out["stats"].values()):
+        raise SystemExit("[replicas] --replicas 2 served on one card")
+
+
+def replicas_pipeline(card, dev, cfg, params, tokens):
+    """`dist/pp.make_pp_loss` on full-depth bf16 Llama-3.2-1B, 2 stages of 8
+    layers on [card, card], n_micro 2 and 4: the loss and every gradient
+    leaf against the plain `loss_fn` (the bf16 bounds of
+    `train/parity.py`), the gradient reaching both stages, and the times of
+    a loss-and-gradient call beside the matmul bound. Returns the plain
+    gradients."""
+    from repro_torch.dist import pp
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.layers import exact_f32
+    from repro_torch.models.lm import model as M
+    from repro_torch.train import tree as T
+    from repro_torch.train.parity import (
+        LM_BF16_GRAD_L2,
+        LM_BF16_LOSS_RTOL,
+        _as_tensor,
+        _leaf_names,
+        _rel_l2,
+    )
+    from repro_torch.train.train_loop import value_and_grad
+
+    def plain():
+        with exact_f32():
+            return value_and_grad(
+                lambda q, b: M.loss_fn(q, cfg, {"tokens": b}), params, tokens)
+
+    ploss, _, pgrads = plain()
+    split = dict(pgrads, layers=pp.split_stage_params(pgrads["layers"],
+                                                      PP_STAGES))
+    sp = dict(params, layers=pp.split_stage_params(params["layers"],
+                                                   PP_STAGES))
+    mesh = make_mesh((PP_STAGES,), ("pod",), devices=[dev] * PP_STAGES)
+    names = _leaf_names(split)
+    b, s = tokens.shape
+    tflop, flop_ms = lm_train_bounds(cfg, b, s)[:2]
+    plain_ms = time_ms(plain, 3)
+    bad = []
+    for n_micro in PP_MICRO:
+        loss_fn = pp.make_pp_loss(cfg, PP_STAGES, n_micro)
+
+        def piped():
+            with exact_f32():
+                return value_and_grad(lambda q, t: loss_fn(q, t, mesh), sp,
+                                      tokens)
+
+        loss, _, grads = piped()
+        loss_err = abs(float(loss) - float(ploss)) / abs(float(ploss))
+        worst, where = 0.0, ""
+        for name, a, g in zip(names, T.leaves(split), T.leaves(grads)):
+            e = _rel_l2(_as_tensor(a, dev), _as_tensor(g, dev))
+            if e > worst:
+                worst, where = e, name
+        wq = grads["layers"]["mix"]["wq"]["w"].float()
+        energy = wq.abs().sum(dim=tuple(range(1, wq.dim()))).tolist()
+        del grads
+        ms = time_ms(piped, 3)
+        print(f"[replicas] {card}: pipeline, Llama-3.2-1B full depth bf16, "
+              f"{PP_STAGES} stages x {cfg.n_layers // PP_STAGES} layers on "
+              f"{mesh}, tokens {b} x {s}, n_micro {n_micro}: loss "
+              f"{float(loss):.6f} against the plain loss_fn's "
+              f"{float(ploss):.6f} (rel err {loss_err:.3e}, bound "
+              f"{LM_BF16_LOSS_RTOL}); worst gradient leaf {where} rel L2 "
+              f"{worst:.3e} (bound {LM_BF16_GRAD_L2}); wq gradient energy "
+              f"by stage {[f'{v:.4e}' for v in energy]}; loss and gradients "
+              f"{ms:.4f} ms against the plain {plain_ms:.4f} ms (median of "
+              f"3, CUDA events, host included; bound {tflop:.3f} TFLOP of "
+              f"matmul = {flop_ms:.4f} ms at 989 TFLOP/s)")
+        if (loss_err > LM_BF16_LOSS_RTOL or worst > LM_BF16_GRAD_L2
+                or not all(v > 0 for v in energy)):
+            bad.append(f"pipeline n_micro {n_micro}: loss err {loss_err}, "
+                       f"{where} {worst}, energy {energy}")
+    return pgrads, bad
+
+
+def replicas_psum(card, dev, grads):
+    """`compressed_psum` over two replicas of the card (each replica's
+    full-width gradients from its own batch, and the residuals that a
+    first all-reduce from zeros leaves): every summed and residual leaf
+    bit for bit its plain version's on the CPU (leaf by leaf there), its
+    ms beside the bytes bound."""
+    import torch
+
+    from repro_torch.dist.sharding import data_mesh
+    from repro_torch.train import grad_compress as GC
+    from repro_torch.train import tree as T
+
+    mesh = data_mesh(2, devices=[dev, dev])
+    zeros = [GC.init_error(g) for g in grads]
+    _, errs = GC.compressed_psum(grads, zeros, mesh)
+    del zeros
+    ms = time_ms(lambda: GC.compressed_psum(grads, errs, mesh), 3)
+    torch.cuda.reset_peak_memory_stats()
+    sums, res = GC.compressed_psum(grads, errs, mesh)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    cpu_mesh = data_mesh(2, devices=["cpu", "cpu"])
+    flat = [T.leaves(t) for t in (*grads, *errs)]
+    outs = [T.leaves(t) for t in (*sums, *res)]
+    n = sum(x.numel() for x in flat[0])
+    n_diff = 0
+    t0 = time.perf_counter()
+    for i in range(len(flat[0])):
+        g = [{"x": flat[r][i].cpu()} for r in range(2)]
+        e = [{"x": flat[2 + r][i].cpu()} for r in range(2)]
+        ws, wr = GC.compressed_psum(g, e, cpu_mesh)
+        for got, want in zip(outs, [w["x"] for w in (*ws, *wr)]):
+            got = got[i].cpu()
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                n_diff += int((got != want).sum())
+    cpu_s = time.perf_counter() - t0
+    # inputs read once (bf16 gradients, f32 residuals), outputs written
+    # once (f32 sums, f32 residuals), for each replica
+    gb = 2 * n * (2 + 4 + 4 + 4) / 1e9
+    print(f"[replicas] {card}: compressed_psum, 2 replicas on {mesh}, "
+          f"Llama-3.2-1B full-width bf16 gradients ({n} values a replica, "
+          f"two token batches): {n_diff} of {4 * n} summed and residual "
+          f"values differ from its plain version on the CPU ({cpu_s:.1f} s "
+          f"there); {ms:.4f} ms (median of 3, CUDA events, host included) "
+          f"against a bound of {gb:.3f} GB = "
+          f"{gb * 1e9 / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s; peak "
+          f"{peak:.3f} GiB")
+    return [] if n_diff == 0 else [f"compressed_psum: {n_diff} differ"]
+
+
+def phase_replicas(card):
+    """Data-parallel replicas on the one card: vision serving over a
+    one-replica mesh and over two replicas of the card, the serving CLI's
+    `--replicas`, the pipeline-parallel loss and the compressed
+    all-reduce at full width."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, lm_batch
+    from repro_torch.models.layers import exact_f32
+    from repro_torch.models.lm import model as M
+    from repro_torch.train.train_loop import value_and_grad
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    replicas_vision(card, dev)
+    replicas_cli()
+    torch.cuda.empty_cache()
+    cfg = get_config("llama3.2-1b")
+    params, _ = M.init_params(cfg, 0, device=dev)
+    data = DataConfig(seed=0, vocab=cfg.vocab, seq_len=PP_SEQ,
+                      global_batch=PP_BATCH)
+    tokens = [torch.from_numpy(lm_batch(data, step)["tokens"]).to(dev).long()
+              for step in (0, 1)]
+    grads_a, bad = replicas_pipeline(card, dev, cfg, params, tokens[0])
+    with exact_f32():
+        grads_b = value_and_grad(
+            lambda q, b: M.loss_fn(q, cfg, {"tokens": b}), params,
+            tokens[1])[2]
+    del params
+    torch.cuda.empty_cache()
+    bad += replicas_psum(card, dev, [grads_a, grads_b])
+    del grads_a, grads_b
+    torch.cuda.empty_cache()
+    print(f"[replicas] phase {time.perf_counter() - t_phase:.1f} s; "
+          f"scaling across several cards: not verified (one card)")
+    if bad:
+        raise SystemExit(f"[replicas] failed: {'; '.join(bad)}")
+
+
 def tune_net(m, q, card):
     """Tune one fixture on the card; print each unique key's winner; fail
     on a disqualified kernel candidate or on coverage below 1.0 (the
@@ -1533,10 +1863,10 @@ def tune_net(m, q, card):
     return plan
 
 
-def tuned_launches(eng):
-    """(K2-K4 launches, K4 by variant) one micro-batch of 8 of a tuned
-    engine makes: its resolved routes and fused blocks, each fused block's
-    variant from `fused_irb.plan` at its input shape."""
+def tuned_launches(eng, rows: int = 8):
+    """(K2-K4 launches, K4 by variant) one micro-batch of `rows` rows of a
+    (tuned) engine's replica makes: its resolved routes and fused blocks,
+    each fused block's variant from `fused_irb.plan` at its input shape."""
     from repro_torch.core import compiler as CC
     from repro_torch.kernels import fused_irb as FI
     from repro_torch.kernels import ops as K
@@ -1553,7 +1883,7 @@ def tuned_launches(eng):
         if block.name in fused:
             e, d, p = block.ops
             h = hw_in[block.name]
-            fp = FI.plan(8, h, h, e.in_ch, e.out_ch, p.out_ch, d.kernel,
+            fp = FI.plan(rows, h, h, e.in_ch, e.out_ch, p.out_ch, d.kernel,
                          d.stride)
             variants["split_e" if fp.splits > 1 else "single"] += 1
     return per, variants
@@ -3015,6 +3345,7 @@ def main() -> int:
     phase_stream(card)
     phase_fixed_point(imgs, card)
     launches = phase_fleet(card)  # the serving path: both nets
+    phase_replicas(card)
     phase_tune(card)
     phase_precision(card)
     phase_train(card, torch.device("cuda", torch.cuda.current_device()))

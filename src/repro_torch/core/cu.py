@@ -26,6 +26,13 @@ one of its alternate formulations of the same int32 accumulator — `int_ref`
 or the kernels K2 (`pallas_pw`) and K3 (`pallas_dw`) — so a route can move
 the wall clock, never a bit. Routes are float-requant only: `fixed_point`
 ignores them, and the hard-sigmoid gate never takes one.
+
+Replicas (`prepare_qnet(mesh=)`, `replicate_prepared`): on a mesh of
+several devices (`repro_torch.dist.sharding.data_mesh`) each replica gets
+its own `PreparedQNet` on its own device, constants, routes and exactness
+flags copied from one preparation: a `ReplicatedQNet`, the multi-replica
+analogue of DeepDive's per-CU weight buffers. A mesh of one device is that
+device.
 """
 from __future__ import annotations
 
@@ -254,8 +261,9 @@ def _resolve_tuned_routes(tuned, pq: PreparedQNet) -> Routes:
     return op_routes
 
 
-def prepare_qnet(qnet: Union[QNet, PreparedQNet], input_bits: int = 8,
-                 device=None, tuned=None, routes=None) -> PreparedQNet:
+def prepare_qnet(qnet: Union[QNet, PreparedQNet, ReplicatedQNet],
+                 input_bits: int = 8, device=None, tuned=None, routes=None,
+                 mesh=None) -> Union[PreparedQNet, ReplicatedQNet]:
     """Lower a QNet to its device-resident serving form (one-time cost).
 
     Walks the graph to bound each op's input activations (the f32
@@ -266,7 +274,26 @@ def prepare_qnet(qnet: Union[QNet, PreparedQNet], input_bits: int = 8,
     selection for this device's backend; callers that resolved a plan
     already (the stage compiler) pass the op-name-keyed `routes` instead.
     Either replaces the routes an already-prepared net carries, and both
-    are validated against the prepared constants (`_validate_routes`)."""
+    are validated against the prepared constants (`_validate_routes`).
+
+    `mesh` (a `data_mesh`) prepares the net once on the mesh's first device
+    (which `device`, if given, must be) and re-places the constants on
+    every device of the mesh (`replicate_prepared`): the routes are
+    resolved once and attached to every replica. An already-prepared net
+    is re-placed the same way."""
+    if mesh is not None:
+        base = mesh_base(qnet, mesh, device)
+        pq = prepare_qnet(base, input_bits, device=mesh.device_list[0],
+                          tuned=tuned, routes=routes)
+        if (isinstance(qnet, ReplicatedQNet) and pq is base
+                and qnet.mesh == mesh):
+            return qnet
+        return replicate_prepared(pq, mesh)
+    if isinstance(qnet, ReplicatedQNet):
+        if tuned is None and routes is None:
+            return qnet
+        return prepare_qnet(qnet, input_bits, device=device, tuned=tuned,
+                            routes=routes, mesh=qnet.mesh)
     dev = resolve_device(device)
     if isinstance(qnet, PreparedQNet):
         if qnet.device != dev:
@@ -307,6 +334,92 @@ def prepare_qnet(qnet: Union[QNet, PreparedQNet], input_bits: int = 8,
     if routes is None and tuned is not None:
         routes = _resolve_tuned_routes(tuned, pq)
     return pq if routes is None else _attach_routes(pq, routes)
+
+
+@dataclasses.dataclass(frozen=True)
+class ReplicatedQNet:
+    """One `PreparedQNet` for each device of `mesh` (flat order), each with
+    its own copy of the constants and the same routes. Its metadata (spec,
+    quantizers, routes, the first device) reads the first replica."""
+
+    mesh: object  # a repro_torch.dist.sharding.Mesh
+    replicas: Tuple[PreparedQNet, ...]
+
+    @property
+    def qnet(self) -> QNet:
+        return self.replicas[0].qnet
+
+    @property
+    def spec(self) -> G.NetSpec:
+        return self.replicas[0].spec
+
+    @property
+    def ops(self) -> Dict[str, PreparedQOp]:
+        return self.replicas[0].ops
+
+    @property
+    def res_q(self) -> Dict[str, Tuple[float, float]]:
+        return self.replicas[0].res_q
+
+    @property
+    def routes(self) -> Routes:
+        return self.replicas[0].routes
+
+    @property
+    def device(self) -> torch.device:
+        return self.replicas[0].device
+
+
+_CONSTANTS = ("w_acc", "w_kern", "w_scale", "wsum", "bias_q", "mult", "zpc",
+              "mantissa", "shift", "w_alt")
+
+
+def _place_prepared(pq: PreparedQNet, dev: torch.device) -> PreparedQNet:
+    """`pq` with a copy of every constant on `dev` (its own storage also
+    where a constant lies on `dev` already: one buffer a replica)."""
+    def put(t):
+        return None if t is None else t.to(dev, copy=True)
+
+    ops = {name: dataclasses.replace(
+               pop, **{f: put(getattr(pop, f)) for f in _CONSTANTS})
+           for name, pop in pq.ops.items()}
+    return dataclasses.replace(pq, ops=ops, device=dev,
+                               input_scale=put(pq.input_scale))
+
+
+def mesh_base(qnet, mesh, device=None):
+    """What a mesh's replicas are prepared from: the net itself, the first
+    replica of a replicated net, a prepared net re-placed on the mesh's
+    first device where it lies elsewhere. `device`, if given, must name
+    that first device."""
+    first = mesh.device_list[0]
+    if device is not None and resolve_device(device) != first:
+        raise ValueError(f"device={device} and a mesh whose first device "
+                         f"is {first} disagree")
+    if isinstance(qnet, ReplicatedQNet):
+        qnet = qnet.replicas[0]
+    if isinstance(qnet, PreparedQNet) and qnet.device != first:
+        qnet = _place_prepared(qnet, first)
+    return qnet
+
+
+def replicate_prepared(pq: Union[PreparedQNet, ReplicatedQNet], mesh
+                       ) -> Union[PreparedQNet, ReplicatedQNet]:
+    """Re-place a prepared net's constants on every device of `mesh`: a
+    `ReplicatedQNet` whose replicas carry the routes and exactness flags
+    of `pq` (of its first replica, if it is replicated already). On a mesh
+    of one device, the net on that device. Replica 0 keeps `pq`'s own
+    constants where they lie on its device already."""
+    if isinstance(pq, ReplicatedQNet):
+        if pq.mesh == mesh:
+            return pq
+        pq = pq.replicas[0]
+    devices = mesh.device_list
+    reps = [pq if i == 0 and dev == pq.device else _place_prepared(pq, dev)
+            for i, dev in enumerate(devices)]
+    if len(reps) == 1:
+        return reps[0]
+    return ReplicatedQNet(mesh=mesh, replicas=tuple(reps))
 
 
 def _weight(pop: PreparedQOp, dtype: torch.dtype) -> torch.Tensor:
@@ -529,13 +642,17 @@ def as_input(x, device: torch.device) -> torch.Tensor:
     return x.to(torch.float32)
 
 
-def run_qnet(qnet: Union[QNet, PreparedQNet], x, input_bits: int = 8,
-             device=None, fixed_point: bool = False) -> torch.Tensor:
+def run_qnet(qnet: Union[QNet, PreparedQNet, ReplicatedQNet], x,
+             input_bits: int = 8, device=None,
+             fixed_point: bool = False) -> torch.Tensor:
     """Full integer inference. Returns float32 logits on the net's device.
 
     A `QNet` is prepared on `device` first (CUDA unless the caller passes
-    another); a `PreparedQNet` runs where it was prepared. `fixed_point`
-    selects the integer mantissa/shift requant."""
+    another); a `PreparedQNet` runs where it was prepared, a
+    `ReplicatedQNet` on its first replica. `fixed_point` selects the
+    integer mantissa/shift requant."""
+    if isinstance(qnet, ReplicatedQNet):
+        qnet = qnet.replicas[0]
     pq = qnet if isinstance(qnet, PreparedQNet) else prepare_qnet(
         qnet, input_bits=input_bits, device=device)
     in_s, in_z = input_qparams(pq)
@@ -551,8 +668,11 @@ __all__ = [
     "quantize_input",
     "PreparedQOp",
     "PreparedQNet",
+    "ReplicatedQNet",
     "OP_ROUTES",
     "prepare_qnet",
+    "mesh_base",
+    "replicate_prepared",
     "run_qop",
     "residual_add",
     "mean_round",

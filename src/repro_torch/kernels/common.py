@@ -14,9 +14,12 @@ Rounding is half to even; the multiply is one f32 rounding.
 
 Also here: the SAME padding arithmetic the kernels and the reference ops
 share, the argument checks every kernel wrapper makes, and what a wrapper
-hands its launch: the current stream, and a workspace reused across calls.
+hands its launch: the current stream, the device guard, and a workspace
+reused across calls.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -57,6 +60,21 @@ def raw_stream(t: torch.Tensor) -> int:
     return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
+_NO_GUARD = contextlib.nullcontext()
+
+
+def device_guard(t: torch.Tensor):
+    """Make `t`'s device current for a launch. The launchers read the
+    current device (`cudaGetDevice`, for the shared-memory attribute and
+    the SM count) while `raw_stream` hands them the stream of `t`'s device,
+    so a launch on a tensor of another device than the current one needs
+    it. The guard is entered only then: on one card a launch pays no host
+    time for it."""
+    if t.get_device() == torch.cuda.current_device():
+        return _NO_GUARD
+    return torch.cuda.device(t.device)
+
+
 _workspaces: dict = {}
 
 
@@ -76,4 +94,4 @@ def workspace(kernel: str, dtype, numel: int, t: torch.Tensor,
 
 
 __all__ = ["requant_clip", "same_pad_amount", "check_tensor", "raw_stream",
-           "workspace"]
+           "device_guard", "workspace"]

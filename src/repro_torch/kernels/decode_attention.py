@@ -48,7 +48,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (
-    check_tensor as _check, raw_stream as _raw_stream,
+    check_tensor as _check, device_guard as _device_guard,
+    raw_stream as _raw_stream,
     workspace as _workspace)
 
 NEG = -1e30
@@ -310,13 +311,15 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                       stream).data_ptr() if p.splits > 1 else None
     fn = _build.function("decode_attention", "decode_attention_launch",
                          _ARGTYPES)
-    err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-             k_scale.data_ptr() if quant else None,
-             v_scale.data_ptr() if quant else None, len_ptr or None,
-             out.data_ptr(), work, len_val, b, kv, rep, dh, s,
-             _FLOAT[q.dtype], _CACHE[k_cache.dtype], sc_code, p.splits,
-             p.per_split, p.tile, int(lay.vec), lay.values, lay.rows,
-             lay.heads, lay.blocks_per_sm, p.smem_bytes, dh ** -0.5, stream)
+    with _device_guard(q):
+        err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                 k_scale.data_ptr() if quant else None,
+                 v_scale.data_ptr() if quant else None, len_ptr or None,
+                 out.data_ptr(), work, len_val, b, kv, rep, dh, s,
+                 _FLOAT[q.dtype], _CACHE[k_cache.dtype], sc_code, p.splits,
+                 p.per_split, p.tile, int(lay.vec), lay.values, lay.rows,
+                 lay.heads, lay.blocks_per_sm, p.smem_bytes, dh ** -0.5,
+                 stream)
     if err:
         raise RuntimeError(f"decode_attention launch failed: CUDA error "
                            f"{err}")

@@ -24,6 +24,7 @@ from repro_torch.core.integer_ops import int_depthwise_shifts
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (
     check_tensor as _check,
+    device_guard as _device_guard,
     raw_stream as _raw_stream,
     requant_clip,
     same_pad_amount,
@@ -70,9 +71,11 @@ def depthwise_conv_q(x_q: torch.Tensor, w_q: torch.Tensor, mult: torch.Tensor,
     out = x_q.new_empty((b, ho, wo, c))  # int32, as x_q: checked above
     fn = _build.function("depthwise_conv", "depthwise_conv_q_launch",
                          _ARGTYPES)
-    err = fn(x_q.data_ptr(), w_q.data_ptr(), mult.data_ptr(), zpc.data_ptr(),
-             bias_q.data_ptr(), out.data_ptr(), b, h, w, c, ho, wo, pad_t,
-             pad_l, kernel, stride, qmax, _raw_stream(x_q))
+    with _device_guard(x_q):
+        err = fn(x_q.data_ptr(), w_q.data_ptr(), mult.data_ptr(),
+                 zpc.data_ptr(), bias_q.data_ptr(), out.data_ptr(), b, h, w,
+                 c, ho, wo, pad_t, pad_l, kernel, stride, qmax,
+                 _raw_stream(x_q))
     if err:
         raise RuntimeError(f"depthwise_conv_q launch failed: CUDA error {err}")
     depthwise_conv_q.launches += 1

@@ -33,7 +33,8 @@ import torch
 from repro_torch.core.cu import residual_add
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (
-    check_tensor as _check, raw_stream as _raw_stream, same_pad_amount,
+    check_tensor as _check, device_guard as _device_guard,
+    raw_stream as _raw_stream, same_pad_amount,
     workspace as _workspace)
 from repro_torch.kernels.depthwise_conv import depthwise_conv_q_plain
 from repro_torch.kernels.pointwise_conv import SMS, pointwise_conv_q_plain
@@ -180,13 +181,14 @@ def fused_irb_q(x_q, w1, m1, z1, b1, w2, m2, z2, b2, w3, m3, z3, b3, *,
                       p.workspace_numel(b * ho * wo, c_out), x_q,
                       stream).data_ptr() if p.splits > 1 else None
     fn = _build.function("fused_irb", "fused_irb_q_launch", _ARGTYPES)
-    err = fn(x_q.data_ptr(), w1.data_ptr(), m1.data_ptr(), z1.data_ptr(),
-             b1.data_ptr(), w2.data_ptr(), m2.data_ptr(), z2.data_ptr(),
-             b2.data_ptr(), w3.data_ptr(), m3.data_ptr(), z3.data_ptr(),
-             b3.data_ptr(), out.data_ptr(), work, b, h, w, c, e_ch, c_out,
-             ho, wo, pad_t, pad_l, *p.tile, kernel, stride, qmax, p.nacc,
-             p.splits, p.eslice, smem, int(residual), a_z, ra, b_z, rb, ryz,
-             stream)
+    with _device_guard(x_q):
+        err = fn(x_q.data_ptr(), w1.data_ptr(), m1.data_ptr(), z1.data_ptr(),
+                 b1.data_ptr(), w2.data_ptr(), m2.data_ptr(), z2.data_ptr(),
+                 b2.data_ptr(), w3.data_ptr(), m3.data_ptr(), z3.data_ptr(),
+                 b3.data_ptr(), out.data_ptr(), work, b, h, w, c, e_ch, c_out,
+                 ho, wo, pad_t, pad_l, *p.tile, kernel, stride, qmax, p.nacc,
+                 p.splits, p.eslice, smem, int(residual), a_z, ra, b_z, rb,
+                 ryz, stream)
     if err:
         raise RuntimeError(f"fused_irb_q launch failed: CUDA error {err}")
     fused_irb_q.launches += 1

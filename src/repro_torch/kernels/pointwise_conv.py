@@ -32,7 +32,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (
-    check_tensor as _check, raw_stream as _raw_stream, requant_clip,
+    check_tensor as _check, device_guard as _device_guard,
+    raw_stream as _raw_stream, requant_clip,
     workspace as _workspace)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -114,9 +115,10 @@ def pointwise_conv_q(x_q: torch.Tensor, w_q: torch.Tensor, mult: torch.Tensor,
                       stream).data_ptr() if p.splits > 1 else None
     fn = _build.function("pointwise_conv", "pointwise_conv_q_launch",
                          _ARGTYPES)
-    err = fn(x_q.data_ptr(), w_q.data_ptr(), mult.data_ptr(), zpc.data_ptr(),
-             bias_q.data_ptr(), out.data_ptr(), work, m, k, n, qmax, *p.tile,
-             p.splits, p.ksplit, stream)
+    with _device_guard(x_q):
+        err = fn(x_q.data_ptr(), w_q.data_ptr(), mult.data_ptr(),
+                 zpc.data_ptr(), bias_q.data_ptr(), out.data_ptr(), work, m,
+                 k, n, qmax, *p.tile, p.splits, p.ksplit, stream)
     if err:
         raise RuntimeError(f"pointwise_conv_q launch failed: CUDA error {err}")
     pointwise_conv_q.launches += 1

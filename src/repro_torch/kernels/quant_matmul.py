@@ -45,7 +45,8 @@ import torch
 from repro_torch.core.quant import unpack_int4
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (
-    check_tensor as _check, raw_stream as _raw_stream,
+    check_tensor as _check, device_guard as _device_guard,
+    raw_stream as _raw_stream,
     workspace as _workspace)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -165,9 +166,10 @@ def quant_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     work = _workspace("quant_matmul", torch.float32, p.workspace_numel(m, n),
                       x, stream).data_ptr() if p.splits > 1 else None
     fn = _build.function("quant_matmul", "quant_matmul_launch", _ARGTYPES)
-    err = fn(xp, wp, w_scale.data_ptr(), op, work, m, k, n, k // g, bits,
-             _CODE[x.dtype], _CODE[w_scale.dtype], _VARIANT[p.variant],
-             p.splits, p.ksplit, stream)
+    with _device_guard(x):
+        err = fn(xp, wp, w_scale.data_ptr(), op, work, m, k, n, k // g, bits,
+                 _CODE[x.dtype], _CODE[w_scale.dtype], _VARIANT[p.variant],
+                 p.splits, p.ksplit, stream)
     if err:
         raise RuntimeError(f"quant_matmul launch failed: CUDA error {err}")
     quant_matmul.launches += 1

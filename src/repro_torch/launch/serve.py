@@ -13,18 +13,21 @@ with `--seed`, as there. Even requests are greedy, odd ones sample at
 temperature 0.8. `--quant-bits` 8 or 4 serves weight-only quantized
 linears (dequantized next to each product, as the JAX model does).
 
-Vision serving:
+Vision serving (multi-model, with data-parallel replicas):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --vision \
         --models mobilenet_v2,efficientnet_compact --hw 128 --requests 32 \
-        [--tune] [--tuned-cache PATH] [--power-budget-w W] \
+        [--replicas 4] [--tune] [--tuned-cache PATH] [--power-budget-w W] \
         [--trace-out trace.json] [--metrics-out metrics.json] [--device cpu]
 
 Each model is a calibrated integer QNet (`models.layers.make_calibrated_qnet`
 from `--seed`: the port's own random draws, so not the JAX CLI's nets)
 served through the pipelined CU stage executors of its `VisionEngine`;
 every model shares one `MultiModelEngine` (EDF across models) and, with
-`--power-budget-w`, one power governor. `--tuned-cache` serves through a
+`--power-budget-w`, one power governor. `--replicas N` (> 1) builds a 1-D
+'data' mesh over the first N visible devices of `--device`'s type
+(`dist.sharding.data_mesh`) and replicates every engine across it; more
+replicas than visible devices is refused. `--tuned-cache` serves through a
 saved route selection (`repro_torch.tune`); `--tune` measures one on the
 device first (and writes it to `--tuned-cache` when given). `--trace-out`
 exports the request-lifecycle Chrome trace, `--metrics-out` the metrics
@@ -32,8 +35,8 @@ registry (Prometheus text for .prom/.txt, JSON otherwise); `python -m
 repro_torch.obs summarize` renders either.
 
 Without `--device` the driver runs on CUDA and fails where there is no
-card. Not ported yet, and refused with a non-zero exit: data-parallel
-replicas (`--replicas` > 1; ROADMAP queue 1 item 11b).
+card. The LM engine serves on one device: the LM path refuses
+`--replicas` > 1 with a non-zero exit.
 """
 from __future__ import annotations
 
@@ -96,10 +99,12 @@ def vision_main(args):
     [((model, rid), image)], "qnets": {model: QNet}, "coverage": {model:
     fraction} (tuned runs only), "stats": {model: EngineStats}}."""
     from repro_torch.core import cu
+    from repro_torch.dist.sharding import data_mesh
     from repro_torch.serve.vision import MultiModelEngine, VisionEngine
 
-    _refuse_replicas(args)
     dev = cu.resolve_device(args.device)
+    mesh = data_mesh(args.replicas, device=dev) if args.replicas > 1 \
+        else None
     tracer = metrics = None
     if args.trace_out:
         from repro_torch.obs import Tracer
@@ -107,7 +112,8 @@ def vision_main(args):
     if args.metrics_out:
         from repro_torch.obs import MetricsRegistry
         metrics = MetricsRegistry()
-    # --batch bounds the largest micro-batch
+    # --batch bounds the largest micro-batch; the engine rounds buckets up
+    # to replica multiples itself
     buckets = tuple(sorted(
         {b for b in (1, 2, 4) if b < args.batch} | {args.batch}))
     models = [m.strip() for m in args.models.split(",") if m.strip()]
@@ -122,7 +128,8 @@ def vision_main(args):
                   f"{coverage[m]:.0%} ({dev.type})")
     engines = {
         m: VisionEngine(qnets[m], buckets=buckets, tuned=tuned,
-                        tracer=tracer, metrics=metrics, name=m, device=dev)
+                        tracer=tracer, metrics=metrics, name=m,
+                        device=None if mesh else dev, mesh=mesh)
         for m in models
     }
     router = MultiModelEngine(engines, power_budget_w=args.power_budget_w)
@@ -141,7 +148,8 @@ def vision_main(args):
     results = router.run()
     n_ok = sum(1 for r in results.values() if r.status == "ok")
     print(f"[serve-vision] {n_ok}/{len(results)} ok over "
-          f"{len(models)} model(s) on {dev}")
+          f"{len(models)} model(s) on {dev}"
+          + (f", {args.replicas} replicas: {mesh}" if mesh else ""))
     stats = router.stats()
     for m, st in sorted(stats.items()):
         print(f"[serve-vision] {m}: fps={st.fps:.1f} "
@@ -170,8 +178,8 @@ def vision_main(args):
 def _refuse_replicas(args):
     if args.replicas > 1:
         raise SystemExit(
-            "--replicas > 1: data-parallel replicas are not ported yet "
-            "(ROADMAP queue 1 item 11b)")
+            "--replicas > 1: the LM engine serves on one device; "
+            "data-parallel replicas are for --vision")
 
 
 def lm_main(args):
@@ -221,7 +229,7 @@ def main(argv=None):
                     help="comma-separated vision model list "
                          f"(from {', '.join(VISION_ARCHS)})")
     ap.add_argument("--replicas", type=int, default=1,
-                    help="data-parallel replicas (not ported yet: only 1)")
+                    help="data-parallel replicas (vision; needs devices)")
     ap.add_argument("--hw", type=int, default=48, help="vision input H=W")
     ap.add_argument("--batch", type=int, default=8,
                     help="largest vision micro-batch bucket")

@@ -21,10 +21,12 @@ card and fails where there is none):
     residual too (the reference's checkpoint leaves it out, so its restart
     starts the residual from zeros: ROADMAP F11).
 
-The reference places parameters and optimizer state on a device mesh
-(`use_mesh(make_host_mesh())`, `tree_shardings`); on one device both are
-the identity, so this driver has no mesh. Meshes and replicas come with
-ROADMAP queue 1 item 11b.
+Parameters are placed as the reference places them: under
+`use_mesh(make_host_mesh(...))`, through `tree_shardings` of the model's
+logical axes. The port's train step runs on one device, so the host mesh
+is the (1, 1) mesh of the device it trains on, where every placement is
+that device and no number moves; a data-parallel step over several cards
+(the reference's pjit over its host mesh) is not ported.
 """
 from __future__ import annotations
 
@@ -37,10 +39,13 @@ import torch
 from repro_torch.configs import ARCHS, get_config, reduced_config
 from repro_torch.core.cu import resolve_device
 from repro_torch.data.pipeline import DataConfig, lm_stream
+from repro_torch.dist.sharding import place, tree_shardings, use_mesh
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.lm import model as M
 from repro_torch.train import checkpoint as CKPT
 from repro_torch.train import grad_compress as GC
 from repro_torch.train import optimizer as O
+from repro_torch.train import tree as T
 from repro_torch.train.straggler import StepWatchdog
 from repro_torch.train.train_loop import make_train_step
 
@@ -75,12 +80,16 @@ def main(argv=None):
 
     dev = resolve_device(args.device)
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
+    mesh = make_host_mesh(devices=[dev])
     data_cfg = DataConfig(seed=args.seed, vocab=cfg.vocab,
                           seq_len=args.seq, global_batch=args.batch)
     opt_cfg = O.AdamWConfig(lr=args.lr, warmup_steps=min(20, args.steps // 5),
                             total_steps=args.steps)
 
-    params, _ = M.init_params(cfg, args.seed, device=dev)
+    with use_mesh(mesh):
+        params, logical = M.init_params(cfg, args.seed, device=dev)
+        param_sh = tree_shardings(logical, mesh)
+        params = T.tree_map(place, params, param_sh)
     opt_state = O.init_state(params)
     err_state = GC.init_error(params) if args.grad_compress else None
     start_step = 0

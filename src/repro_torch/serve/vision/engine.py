@@ -30,7 +30,13 @@ with the same clock reads, spans and instruments as the reference's.
 `tuned=` serves a measured route selection (`repro_torch.tune`; see
 `compile_stages`), and the same cache prices the energy model's ops.
 
-Not ported yet: the data-parallel mesh (`EngineStats.replicas` is 1).
+`mesh=` (a 1-D 'data' mesh from `repro_torch.dist.sharding.data_mesh`)
+replicates the whole integer datapath: every device of the mesh holds its
+own constants, and each micro-batch's rows are split across the replicas,
+each block copied to its own device, and gathered back in replica order —
+the multi-device analogue of DeepDive's parallel channel/filter CU
+replication. Results stay bit-exact because every image's arithmetic is
+replica-local.
 """
 from __future__ import annotations
 
@@ -46,6 +52,7 @@ import torch
 from repro_torch.core import compiler as CC
 from repro_torch.core import cu
 from repro_torch.core.qnet import QNet, load_qnet
+from repro_torch.dist.sharding import batch_sharding, place
 from repro_torch.energy import (
     EnergyReport,
     PowerGovernor,
@@ -112,7 +119,7 @@ class EngineStats:
     power_source: str
     energy_tuned_fraction: float  # fraction of ops priced from measured routes
     device: str
-    replicas: int = 1  # no mesh in the port yet
+    replicas: int = 1  # mesh 'data' extent the engine shards over
     latency_p99_s: float = float("nan")
     # first calls at non-bucketed shapes per stage (should stay all-zero;
     # see CompiledStage.allowed_batches — a nonzero count is a leak)
@@ -131,6 +138,13 @@ class VisionEngine:
     one device (CUDA unless `device=` names another). `fixed_point=True`
     serves the integer mantissa/shift requant through the reference torch
     ops (see `compile_stages`).
+
+    `mesh`: a 1-D 'data' mesh (see `dist.sharding.data_mesh`) shards every
+    micro-batch data-parallel across its replicas; each requested bucket is
+    rounded up to the next replica multiple (rows are bucket-padded anyway,
+    so each replica gets equal rows). The engine's `device` is the mesh's
+    first device; a `device=` that names another raises. `pq` is the net
+    prepared there, the stages hold one copy a replica.
 
     `clock`: injectable time source (returns seconds, perf_counter-like) —
     deadlines, latencies, wall time, trace timestamps and the governor's
@@ -155,7 +169,7 @@ class VisionEngine:
     def from_artifact(cls, path: str, **kwargs) -> "VisionEngine":
         """Serve a frozen `.qnet` deployment artifact straight from disk (its
         build record rebuilds the NetSpec). Engine knobs (`buckets`,
-        `tuned`, ...) pass through."""
+        `mesh`, `tuned`, ...) pass through."""
         return cls(load_qnet(path), **kwargs)
 
     def __init__(
@@ -169,6 +183,7 @@ class VisionEngine:
         op_kernels: str = "auto",
         fixed_point: bool = False,
         device=None,
+        mesh=None,
         tuned=None,
         clock: Optional[Callable[[], float]] = None,
         max_queue: int = 4096,
@@ -183,18 +198,32 @@ class VisionEngine:
     ):
         if not buckets or any(b <= 0 for b in buckets):
             raise ValueError(f"bad buckets {buckets}")
+        if mesh is not None:
+            qnet = cu.mesh_base(qnet, mesh, device)
+            device = mesh.device_list[0]
         self.pq = cu.prepare_qnet(qnet, input_bits=input_bits, device=device)
         self.device = self.pq.device
         self.qnet = self.pq.qnet
         self.plan = plan if plan is not None else CC.compile_net(self.pq.spec)
         self.buckets = tuple(sorted(set(int(b) for b in buckets)))
+        self.mesh = mesh
         self.replicas = 1
+        self._batch_sharding = None
+        if mesh is not None:
+            self.replicas = int(dict(mesh.shape).get("data", 1))
+            # every bucket rounds up to the next replica multiple: batches
+            # are bucket-padded regardless, so each shard gets equal rows
+            self.buckets = tuple(sorted(
+                {-(-b // self.replicas) * self.replicas
+                 for b in self.buckets}))
+            self._batch_sharding = batch_sharding(mesh)
         self._clock = time.perf_counter if clock is None else clock
         self.max_queue = max_queue
         self.stages: List[CompiledStage] = compile_stages(
             self.pq, self.plan, input_bits=input_bits,
             body_fast_path=body_fast_path, op_kernels=op_kernels,
-            fixed_point=fixed_point, device=self.device, tuned=tuned)
+            fixed_point=fixed_point, device=self.device, tuned=tuned,
+            mesh=mesh)
         self.name = name
         self.tracer = tracer if tracer is not None else OT.NULL
         self.metrics = metrics
@@ -360,10 +389,13 @@ class VisionEngine:
                 return b
         return self.buckets[-1]
 
-    def _place(self, x: np.ndarray) -> torch.Tensor:
+    def _place(self, x: np.ndarray):
         """Host micro-batch -> device: the one copy a micro-batch makes,
-        from pinned memory on CUDA so that it runs asynchronously."""
+        from pinned memory on CUDA so that it runs asynchronously. With a
+        mesh, each replica's rows go to its own device."""
         t = torch.from_numpy(x)
+        if self._batch_sharding is not None:
+            return place(t, self._batch_sharding, non_blocking=True)
         if self.device.type == "cuda":
             t = t.pin_memory()
         return t.to(self.device, non_blocking=True)
@@ -479,9 +511,10 @@ class VisionEngine:
     # serving
     # ------------------------------------------------------------------
 
-    def _record_batch(self, reqs: List[VisionRequest], y: torch.Tensor,
+    def _record_batch(self, reqs: List[VisionRequest], y,
                       done: float) -> None:
-        """Un-pad a finished micro-batch into per-request results."""
+        """Un-pad a finished micro-batch into per-request results (a
+        replicated one gathered in replica order)."""
         logits = y.cpu().numpy()
         for i, req in enumerate(reqs):
             self._results[req.rid] = RequestResult(
@@ -564,7 +597,7 @@ class VisionEngine:
 
 
 class MultiModelEngine:
-    """EDF router over per-model `VisionEngine`s sharing the card.
+    """EDF router over per-model `VisionEngine`s sharing the card (mesh).
 
     Requests are tagged by model name at submit time and drain through that
     model's own stage pipeline. One `run()` drains every model's queue:

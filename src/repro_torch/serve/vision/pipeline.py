@@ -7,7 +7,10 @@ PyTorch enqueues CUDA work asynchronously, so every dispatch of a tick
 returns at once; when a micro-batch leaves the last stage the tick records
 a CUDA event behind it, and `harvest` waits on that event alone — the work
 already queued for later micro-batches keeps the card busy meanwhile.
-On the CPU everything is synchronous and `harvest` waits for nothing.
+A replicated micro-batch (`sharding.Sharded`, its row blocks on the
+devices of a mesh) records one event on each of its devices' current
+streams, and `harvest` waits for them all. On the CPU everything is
+synchronous and `harvest` waits for nothing.
 
 Observability (`tracer=` / `metrics=`, see `repro_torch.obs`), as in the
 reference: each stage dispatch becomes a `dispatch:<cu>` span on that CU's
@@ -26,6 +29,7 @@ from typing import Any, Deque, Iterable, Iterator, List, Optional, Tuple
 
 import torch
 
+from repro_torch.dist.sharding import parts_of
 from repro_torch.obs import metrics as OM
 from repro_torch.obs import trace as OT
 from repro_torch.serve.vision.stages import CompiledStage
@@ -41,6 +45,22 @@ def _stage_bytes_per_row(stage: CompiledStage) -> int:
     return n_in + n_out
 
 
+def _cuda_devices(x) -> List[torch.device]:
+    """The CUDA devices a (placed) value lies on, each once, in order."""
+    return list(dict.fromkeys(p.device for p in parts_of(x) if p.is_cuda))
+
+
+def _done_events(y) -> List[torch.cuda.Event]:
+    """One event behind the work that makes `y`, on each of its devices'
+    current streams."""
+    events = []
+    for dev in _cuda_devices(y):
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(dev))
+        events.append(ev)
+    return events
+
+
 class PipelinedExecutor:
     def __init__(self, stages: List[CompiledStage], clock=None,
                  tracer: Optional[OT.Tracer] = None, metrics=None):
@@ -49,7 +69,7 @@ class PipelinedExecutor:
         self.stages = stages
         self._slots: List[Optional[Tuple[Any, torch.Tensor]]] = \
             [None] * len(stages)
-        self._done: Deque[Optional[torch.cuda.Event]] = collections.deque()
+        self._done: Deque[List[torch.cuda.Event]] = collections.deque()
         self._clock = time.perf_counter if clock is None else clock
         self._streaming = False
         # wall time spent blocked on finished outputs (pipeline stall proxy)
@@ -105,7 +125,7 @@ class PipelinedExecutor:
                 continue
             tag, x = self._slots[i]
             self._slots[i] = None
-            rows = int(x.shape[0])
+            rows = int(x.shape[0])  # the whole micro-batch, every replica
             if self.tracer:
                 t0 = self._clock()
                 y = self.stages[i](x)  # enqueued, returns at once on CUDA
@@ -124,11 +144,7 @@ class PipelinedExecutor:
                 self._slots[i + 1] = (tag, y)
             else:
                 finished = (tag, y)
-                ev = None
-                if y.is_cuda:
-                    ev = torch.cuda.Event()
-                    ev.record(torch.cuda.current_stream(y.device))
-                self._done.append(ev)
+                self._done.append(_done_events(y))
         return finished
 
     def inject(self, batch: Tuple[Any, torch.Tensor]) -> None:
@@ -147,8 +163,7 @@ class PipelinedExecutor:
         """Wait until a finished output is ready (the only sync point).
         Outputs are harvested in the order `advance` returned them."""
         t0 = self._clock()
-        ev = self._done.popleft()
-        if ev is not None:
+        for ev in self._done.popleft():
             ev.synchronize()
         t1 = self._clock()
         self.harvest_wait_s += t1 - t0
@@ -205,16 +220,16 @@ class PipelinedExecutor:
             if self.tracer:
                 t0 = self._clock()
                 x = stage.run(x)
-                if x.is_cuda:
-                    torch.cuda.synchronize(x.device)
+                for dev in _cuda_devices(x):
+                    torch.cuda.synchronize(dev)
                 self.tracer.complete(
                     f"warmup:{stage.spec.cu}", t0, self._clock(),
                     cat="stage", tid=OT.TID_STAGE0 + i,
                     args={"rows": int(example.shape[0])})
             else:
                 x = stage.run(x)
-        if x.is_cuda:
-            torch.cuda.synchronize(x.device)
+        for dev in _cuda_devices(x):
+            torch.cuda.synchronize(dev)
 
 
 __all__ = ["PipelinedExecutor"]

@@ -35,6 +35,16 @@ reported to `on_retrace`.
 epilogue is float-multiplier only (in the reference's Pallas kernels too),
 so fixed point runs the reference torch ops: "auto" flags resolve to off,
 and "on" with fixed point raises.
+
+Replication (`mesh=`, a `repro_torch.dist.sharding.data_mesh`): every
+device of the mesh holds its own prepared net (`cu.prepare_qnet(mesh=)`),
+with the routes resolved once; a stage takes a batch-sharded micro-batch
+(`sharding.Sharded`, its row blocks in replica order) and runs each
+replica's block through that replica's net, so the blocks stay split along
+the whole chain with no gather between CUs, as the reference's
+`in_shardings`/`out_shardings` keep them. Trace accounting counts the
+whole micro-batch, as the reference's jit sees it. A mesh of one device
+is that device: the stages take and give plain tensors.
 """
 from __future__ import annotations
 
@@ -48,6 +58,7 @@ from repro_torch.core import compiler as CC
 from repro_torch.core import cu
 from repro_torch.core import graph as G
 from repro_torch.core.qnet import QNet
+from repro_torch.dist.sharding import Sharded
 from repro_torch.kernels import ops as K
 from repro_torch.tune.cache import TunedPlan
 
@@ -68,12 +79,14 @@ class StageSpec:
 
 
 class CompiledStage:
-    """One CU stage as a callable on tensors of the prepared net's device.
+    """One CU stage as a callable on tensors of the prepared net's device
+    (on a `ReplicatedQNet`, on batch-sharded values of its mesh).
     `invocations` counts the micro-batches it ran, `traces` the distinct
     input shapes it has seen and `retraces` those outside
     `allowed_batches`."""
 
-    def __init__(self, spec: StageSpec, pq: cu.PreparedQNet, *,
+    def __init__(self, spec: StageSpec,
+                 pq: Union[cu.PreparedQNet, cu.ReplicatedQNet], *,
                  input_bits: int, fixed_point: bool = False,
                  fused_blocks: frozenset = frozenset()):
         self.spec = spec
@@ -111,10 +124,20 @@ class CompiledStage:
             if self.on_retrace is not None:
                 self.on_retrace(self, tuple(x.shape))
 
-    def run(self, x: torch.Tensor) -> torch.Tensor:
+    def run(self, x: Union[torch.Tensor, Sharded]
+            ) -> Union[torch.Tensor, Sharded]:
         """The stage's function, without counting an invocation."""
         self._note_shape(x)
-        spec, pq = self.spec, self.pq
+        if isinstance(self.pq, cu.ReplicatedQNet):
+            if not isinstance(x, Sharded) or x.mesh != self.pq.mesh:
+                raise ValueError(f"stage {self.spec.cu}: replicated on "
+                                 f"{self.pq.mesh}, given {x!r}")
+            reps = self.pq.replicas
+            return x.map(lambda part, i: self._run(part, reps[i]))
+        return self._run(x, self.pq)
+
+    def _run(self, x: torch.Tensor, pq: cu.PreparedQNet) -> torch.Tensor:
+        spec = self.spec
         y = x
         if spec.quantizes_input:
             y = cu.quantize_input(y, pq.input_scale, spec.in_zp,
@@ -130,7 +153,8 @@ class CompiledStage:
             y = cu.dequantize(y, s, z)
         return y
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+    def __call__(self, x: Union[torch.Tensor, Sharded]
+                 ) -> Union[torch.Tensor, Sharded]:
         self.invocations += 1
         return self.run(x)
 
@@ -151,6 +175,7 @@ def compile_stages(
     fixed_point: bool = False,
     device=None,
     tuned=None,
+    mesh=None,
 ) -> List[CompiledStage]:
     """Lower a CUPlan into the ordered list of stage executors.
 
@@ -160,7 +185,21 @@ def compile_stages(
     backend (see the module docstring); they replace any routes the net
     carries. Tuned routes are float-requant formulations, so `tuned`
     refuses `fixed_point=True`; the kernels' epilogue is float-multiplier
-    only, so fixed point turns "auto" flags off and refuses "on"."""
+    only, so fixed point turns "auto" flags off and refuses "on".
+
+    `mesh`: a mesh with a 'data' axis (`dist.sharding.data_mesh`)
+    replicates the whole executor chain: the net is prepared on the mesh's
+    first device (`device`, if given, must be it), its routes resolved
+    there, and every device gets its own copy (`cu.prepare_qnet(mesh=)`);
+    micro-batch rows are split along 'data' in and out of every stage.
+    Batch sizes must divide by the replica count. `None` (default) is the
+    single-device configuration."""
+    if mesh is not None:
+        if "data" not in mesh.axis_names:
+            raise ValueError(
+                f"mesh needs a 'data' axis, got {mesh.axis_names}")
+        qnet = cu.mesh_base(qnet, mesh, device)
+        device = mesh.device_list[0]
     pq = cu.prepare_qnet(qnet, input_bits=input_bits, device=device)
     if plan is None:
         plan = CC.compile_net(pq.spec)
@@ -185,7 +224,7 @@ def compile_stages(
     op_routes, fused = tuned.resolve_with_defaults(
         pq.spec, plan, backend=pq.device.type, op_kernels=kerns,
         body_fast_path=fast)
-    pq = cu.prepare_qnet(pq, device=pq.device, routes=op_routes)
+    pq = cu.prepare_qnet(pq, device=pq.device, routes=op_routes, mesh=mesh)
     sigs = plan.stage_signatures()
     stages: List[CompiledStage] = []
     s, z = cu.input_qparams(pq)

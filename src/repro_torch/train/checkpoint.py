@@ -31,6 +31,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.dist.sharding import place
 from repro_torch.train import tree as T
 
 # torch dtype -> (manifest tag, integer dtype of the same width)
@@ -128,10 +129,15 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore(ckpt_dir: str, target_tree: Any, *, step: Optional[int] = None,
-            device=None):
+            device=None, shardings: Any = None):
     """Load into the structure of `target_tree`. Each leaf goes to
     `device`, or to the device of the target's leaf in its place (the CPU
-    where that is not a tensor). Returns (tree, step)."""
+    where that is not a tensor). With `shardings` (a tree of placements
+    aligned with the target: `dist.sharding.tree_shardings`, `replicated`,
+    `batch_sharding`, or None for a leaf placed as without it) each leaf
+    is placed as its sharding says instead (`dist.sharding.place`: one
+    tensor a device where it is replicated, the rows split over 'data';
+    the tensor itself on a mesh of one device). Returns (tree, step)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -146,8 +152,13 @@ def restore(ckpt_dir: str, target_tree: Any, *, step: Optional[int] = None,
     if len(arrays) != len(leaves):
         raise ValueError(
             f"checkpoint has {len(arrays)} leaves, target expects {len(leaves)}")
+    shard_leaves = (T.flatten_up_to(treedef, shardings)
+                    if shardings is not None else [None] * len(leaves))
     out = []
-    for a, tag, like in zip(arrays, tags, leaves):
+    for a, tag, like, sh in zip(arrays, tags, leaves, shard_leaves):
+        if sh is not None:
+            out.append(place(_decode(a, tag, "cpu"), sh))
+            continue
         dev = device if device is not None else (
             like.device if isinstance(like, torch.Tensor) else "cpu")
         out.append(_decode(a, tag, dev))

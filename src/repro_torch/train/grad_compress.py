@@ -12,18 +12,30 @@ error-feedback residual so the compression bias does not accumulate
 
 `compress_tree` models the numerics, bit for bit the reference's: the
 scale is amax / 127 (1 where amax is 0), rounding is half to even, and the
-residual is taken in float32. The reference's `compressed_psum`, the
-all-reduce of the int8 payload across data-parallel replicas, waits for the
-port's replicas (ROADMAP queue 1 item 11b): on one card there is no
-reduction to compress.
+residual is taken in float32.
+
+`compressed_psum` is the all-reduce of that payload across data-parallel
+replicas. The reference's is a `shard_map` body, one call a device; the
+port drives every replica from one process (`repro_torch.dist`): it takes
+each replica's gradient and residual trees, quantizes each replica's
+gradient on its own device, moves the int8 codes and the scale (4x fewer
+bytes than float32) to every replica, and sums the dequantized payloads
+there in replica order, the order of XLA's CPU all-reduce (a left fold,
+bit for bit the reference's at 2, 3, 4 and 8 replicas). The reference's
+body only ever runs compiled, where XLA fuses the residual
+`corrected - deQ(c)` into one multiply-add, rounded once; the port rounds
+it once too (`_fused_residual`), so the residuals are the reference's bit
+for bit as well.
+`compress_tree` keeps eager JAX's two roundings.
 """
 from __future__ import annotations
 
-from typing import Any, Tuple
+from typing import Any, List, Sequence, Tuple
 
 import torch
 
 from repro_torch.core.quant import true_div
+from repro_torch.dist.sharding import data_mesh
 from repro_torch.train import tree as T
 
 F32 = torch.float32
@@ -63,4 +75,58 @@ def compress_tree(grads, error) -> Tuple[Any, Any]:
             T.unflatten(treedef, [o[1] for o in out]))
 
 
-__all__ = ["init_error", "compress_tree"]
+def _fused_residual(corrected: torch.Tensor, q: torch.Tensor,
+                    scale: torch.Tensor) -> torch.Tensor:
+    """corrected - q * scale with one rounding, as a fused multiply-add
+    gives it. The scale splits into hi (its low 12 mantissa bits cleared)
+    and lo = scale - hi, 12 significant bits each, so q * hi and q * lo are
+    exact (a code has 8 bits); corrected - q * hi is exact too (where q is
+    not 0 the two lie within a factor 2 of each other); the last
+    subtraction is the one rounding."""
+    hi = (scale.view(torch.int32) & -4096).view(F32)
+    qf = q.to(F32)
+    return (corrected - qf * hi) - qf * (scale - hi)
+
+
+def compressed_psum(grads_by_replica: Sequence[Any],
+                    errors_by_replica: Sequence[Any],
+                    mesh=None) -> Tuple[List[Any], List[Any]]:
+    """The compressed all-reduce over the devices of `mesh` (default: a
+    `data_mesh` over as many CUDA devices as there are replicas). Replica
+    r's trees lie on (or are moved to) the mesh's r-th device. Each
+    replica quantizes its error-corrected gradient locally, as
+    `compress_tree` does; every replica receives the sum of all the
+    dequantized payloads, taken in replica order on its own device.
+    Returns (summed tree a replica, new residual tree a replica)."""
+    if mesh is None:
+        mesh = data_mesh(len(grads_by_replica))
+    devices = mesh.device_list
+    if not len(grads_by_replica) == len(errors_by_replica) == len(devices):
+        raise ValueError(f"{len(grads_by_replica)} gradient and "
+                         f"{len(errors_by_replica)} residual trees for a "
+                         f"mesh of {len(devices)} devices")
+    flat_g, treedef = T.flatten(grads_by_replica[0])
+    flats_g = [flat_g] + [T.flatten_up_to(treedef, g)
+                          for g in grads_by_replica[1:]]
+    flats_e = [T.flatten_up_to(treedef, e) for e in errors_by_replica]
+    sums = [[] for _ in devices]
+    residuals = [[] for _ in devices]
+    for leaf in range(len(flat_g)):
+        payload = []  # each replica's (int8 codes, scale), on its device
+        for r, dev in enumerate(devices):
+            corrected = flats_g[r][leaf].to(dev).to(F32) \
+                + flats_e[r][leaf].to(dev)
+            q, s = _q(corrected)
+            residuals[r].append(_fused_residual(corrected, q, s))
+            payload.append((q, s))
+        for r, dev in enumerate(devices):
+            total = None
+            for q, s in payload:
+                v = _dq(q.to(dev), s.to(dev))
+                total = v if total is None else total + v
+            sums[r].append(total)
+    return ([T.unflatten(treedef, x) for x in sums],
+            [T.unflatten(treedef, x) for x in residuals])
+
+
+__all__ = ["init_error", "compress_tree", "compressed_psum"]

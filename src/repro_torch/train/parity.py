@@ -336,6 +336,11 @@ LM_SURE_EPS = 1e3  # "sure": |clipped g| above this many Adam eps, both sides
 LM_PARAM_SURE = 1.5e-4
 LM_PARAM_SURE_CARD = 5e-4
 LM_PARAM_LR = 2.0  # ... and everywhere (a fresh Adam moves each by ~lr)
+# bfloat16: the loss and each gradient leaf of two computations of the
+# same loss (the JAX package against the port on the CPU, the pipeline
+# against the plain loss on the card)
+LM_BF16_LOSS_RTOL = 1e-4
+LM_BF16_GRAD_L2 = 2e-2
 
 
 def _as_tensor(x, dev) -> torch.Tensor:

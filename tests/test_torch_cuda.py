@@ -1192,3 +1192,127 @@ def test_precision_export_on_card_serves_as_the_cpu(precision_case, dev,
     st = eng.stages[0]
     assert K.launch_counts() == K.served_launches(
         CC.compile_net(q.spec), routes=st.pq.routes, fused=st.fused_blocks)
+
+
+# ---------------------------------------------------------------------------
+# data-parallel replicas: several replicas of the one card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [1, 2])
+@pytest.mark.parametrize("model,bits", [("mobilenet_v2", 8),
+                                        ("efficientnet_compact", 4)])
+def test_replicated_engine_on_card_matches_golden(dev, model, bits, n):
+    """`VisionEngine(mesh=)` over n replicas of the card: the goldens' logits
+    bit for bit, each replica its own constants, and n times the kernel
+    launches of one replica a micro-batch."""
+    from repro_torch.core import compiler as CC
+    from repro_torch.core import cu
+    from repro_torch.dist.sharding import data_mesh
+
+    path, fix = _golden(model, bits)
+    mesh = data_mesh(n, devices=[dev] * n)
+    eng = VisionEngine.from_artifact(path, buckets=(2,), mesh=mesh)
+    eng.warmup()
+    rids = [eng.submit(img) for img in fix["input"]]
+    K.reset_launch_counts()
+    res = eng.run()
+    np.testing.assert_array_equal(
+        np.stack([res[r].logits for r in rids]), fix["logits"])
+    per = K.served_launches(CC.compile_net(eng.pq.spec))
+    assert K.launch_counts() == {k: n * v for k, v in per.items()}
+    assert eng.stats().replicas == n
+    pq = eng.stages[0].pq
+    if n > 1:
+        assert isinstance(pq, cu.ReplicatedQNet)
+        for name in pq.ops:
+            assert len({r.ops[name].w_acc.data_ptr()
+                        for r in pq.replicas}) == n
+
+
+def test_compressed_psum_on_card_equals_cpu(dev):
+    from repro_torch.dist.sharding import data_mesh
+    from repro_torch.train import grad_compress as GC
+
+    rng = np.random.default_rng(3)
+    trees = [{"a": torch.from_numpy(rng.standard_normal((64, 96)).astype(
+        np.float32) * 10.0 ** rng.integers(-3, 3, (64, 96))).to(
+        torch.bfloat16), "b": torch.from_numpy(
+        rng.standard_normal(33).astype(np.float32))} for _ in range(2)]
+    errs = [{k: torch.from_numpy(rng.standard_normal(tuple(v.shape)).astype(
+        np.float32) * 1e-2) for k, v in t.items()} for t in trees]
+    want = GC.compressed_psum(trees, errs, data_mesh(2, devices=["cpu"] * 2))
+    got = GC.compressed_psum([{k: v.to(dev) for k, v in t.items()}
+                              for t in trees],
+                             [{k: v.to(dev) for k, v in e.items()}
+                              for e in errs],
+                             data_mesh(2, devices=[dev, dev]))
+    for w_side, g_side in zip(want, got):
+        for w, g in zip(w_side, g_side):
+            for k in w:
+                assert g[k].device == dev and torch.equal(g[k].cpu(), w[k])
+
+
+def test_pipeline_on_card_equals_cpu(dev):
+    """`make_pp_loss` with both stages on the card against both on the CPU
+    (reduced Llama, 4 layers, f32): the LM tests' f32 bounds."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.dist import pp
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.lm import model as M
+    from repro_torch.train import tree as T
+    from repro_torch.train.parity import LM_GRAD_L2, LM_LOSS_RTOL, _rel_l2
+    from repro_torch.train.train_loop import value_and_grad
+
+    cfg = dataclasses.replace(reduced_config("llama3.2-1b"),
+                              dtype="float32", n_layers=4)
+    params, _ = M.init_params(cfg, 0, device="cpu")
+    params["layers"] = pp.split_stage_params(params["layers"], 2)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (4, 16))).long()
+    out = {}
+    for side, devs in (("cpu", ["cpu"] * 2), ("card", [dev, dev])):
+        loss_fn = pp.make_pp_loss(cfg, 2, 2)
+        mesh = make_mesh((2,), ("pod",), devices=devs)
+        p = T.tree_map(lambda t: t.to(devs[0]), params)
+        out[side] = value_and_grad(lambda q, b: loss_fn(q, b, mesh), p,
+                                   tokens.to(devs[0]))
+    (lw, _, gw), (lg, _, gg) = out["cpu"], out["card"]
+    assert abs(float(lg) - float(lw)) / abs(float(lw)) <= LM_LOSS_RTOL
+    for a, b in zip(T.leaves(gw), T.leaves(gg)):
+        assert _rel_l2(a.double(), b.cpu().double()) <= LM_GRAD_L2
+
+
+def test_kernel_launches_under_its_input_device(dev):
+    """A kernel called on a tensor of another card than the current one
+    launches there (the wrappers' device guard). Needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    other = torch.device("cuda", 1 - dev.index if dev.index < 2 else 0)
+    rng = np.random.default_rng(0)
+    x = _rand(rng, other, (2, 7, 7, 64), 0, 256, torch.int32)
+    w = _rand(rng, other, (64, 96), -127, 128, torch.int8)
+    mult, zpc, bias = _consts(rng, other, 96)
+    with torch.cuda.device(dev):
+        got = pointwise_conv_q(x, w, mult, zpc, bias, qmax=255)
+    torch.cuda.synchronize(other)
+    assert got.device == other
+    _equal(got.cpu(), pointwise_conv_q_plain(
+        x.cpu(), w.cpu(), mult.cpu(), zpc.cpu(), bias.cpu(), qmax=255))
+
+
+def test_serve_cli_replicas_on_card(dev):
+    """`--vision --replicas 2`: refused on a machine with one card (JAX's
+    `data_mesh` text), served where there are two."""
+    from repro_torch.launch import serve as CLI
+
+    argv = ["--vision", "--hw", "32", "--batch", "4", "--requests", "4",
+            "--replicas", "2"]
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(ValueError,
+                           match="replicas=2 with 1 visible devices"):
+            CLI.main(argv)
+        return
+    out = CLI.main(argv)
+    assert all(r.status == "ok" for r in out["results"].values())
+    assert all(st.replicas == 2 for st in out["stats"].values())

@@ -5,8 +5,9 @@ port's own `make_calibrated_qnet` draws, so they are not the JAX CLI's),
 a tuned cache written by `--tune` and served by a second run, the trace
 and metrics files. LM (the default): every request served, the greedy
 requests' tokens equal to the JAX CLI's on JAX's weights, `--quant-bits`
-serving integer weights. And the refusal of what is not ported
-(`--replicas` > 1)."""
+serving integer weights. And the refusals of `--replicas` > 1: by the LM
+path, which serves on one device, and by the vision mesh on one visible
+device (served over two in `tests/test_torch_replicas.py`)."""
 from __future__ import annotations
 
 import dataclasses
@@ -102,10 +103,18 @@ def test_metrics_json_snapshot(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--requests", "2", "--replicas", "2", "--device", "cpu"], "item 11"),
-    (BASE + ["--replicas", "2"], "item 11"),
+    (["--requests", "2", "--replicas", "2", "--device", "cpu"],
+     "serves on one device"),
+    (BASE + ["--replicas", "2"], "replicas=2 with 1 visible devices"),
 ])
 def test_refuses_what_is_not_ported(argv, item):
+    """The LM engine serves on one device, so its path refuses replicas;
+    the vision path builds a mesh, which the CPU's one visible device
+    cannot hold two replicas of (the JAX CLI's `data_mesh` error)."""
+    if "--vision" in argv:
+        with pytest.raises(ValueError, match=item):
+            CLI.main(argv)
+        return
     with pytest.raises(SystemExit, match=item) as e:
         CLI.main(argv)
     assert e.value.code not in (0, None)

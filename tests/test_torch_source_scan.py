@@ -3,7 +3,8 @@
 (the streaming engine, fixed-point inference, the multi-model router, the
 energy model's default power curve, the vision trainer, its export and its
 CLI, the LM's init, cache and `Engine`, the LM serving CLI, the LM
-training CLI and the AdamW state's carrier included)
+training CLI, the AdamW state's carrier, the data mesh, the host mesh, a
+replicated `VisionEngine` and the compressed all-reduce included)
 called without `device=` (or `backend=`) on a machine without CUDA raises
 instead of running on the CPU."""
 import ast
@@ -16,9 +17,11 @@ import torch
 from repro_torch.configs import reduced_config
 from repro_torch.convert import lm_from_reference, opt_state_from_reference
 from repro_torch.core import cu, qnet as Q
+from repro_torch.dist import sharding as S
 from repro_torch.energy import default_power_model, estimate_energy
 from repro_torch.launch import serve as serve_cli
 from repro_torch.launch import train as lm_train_cli
+from repro_torch.launch import mesh as LMESH
 from repro_torch.launch import train_vision as train_cli
 from repro_torch.models import layers
 from repro_torch.models.lm import model as LM
@@ -29,6 +32,7 @@ from repro_torch.serve.vision import (
     VisionEngine,
     compile_stages,
 )
+from repro_torch.train import grad_compress as GC
 from repro_torch.train import optimizer as PO
 from repro_torch.train import vision as V
 from tests.regen_golden import fixture_paths
@@ -66,7 +70,8 @@ def test_port_files_found():
                 "models/lm/mamba2.py", "models/lm/rglru.py",
                 "configs/registry.py", "serve/engine.py",
                 "train/grad_compress.py", "train/straggler.py",
-                "launch/train.py"):
+                "launch/train.py", "dist/__init__.py", "dist/sharding.py",
+                "dist/pp.py", "launch/mesh.py"):
         assert ROOT / "src" / "repro_torch" / rel in PORT_FILES
 
 
@@ -93,7 +98,10 @@ def test_no_jax_or_reference_import(path):
                                    "train_vision --check-artifact",
                                    "Engine", "init_params", "init_cache",
                                    "LM serve CLI", "LM train CLI",
-                                   "opt_state_from_reference"])
+                                   "opt_state_from_reference",
+                                   "data_mesh()", "make_host_mesh()",
+                                   "VisionEngine(mesh=)",
+                                   "compressed_psum"])
 def test_entry_points_refuse_to_run_without_cuda(entry, monkeypatch):
     path = fixture_paths("mobilenet_v2", 8)[0]
     qnet = Q.load_qnet(path)
@@ -138,6 +146,12 @@ def test_entry_points_refuse_to_run_without_cuda(entry, monkeypatch):
                 lambda: lm_train_cli.main(["--reduced", "--steps", "1"]),
             "opt_state_from_reference":
                 lambda: opt_state_from_reference(
-                    PO.AdamWState(np.zeros((), np.int32), {}, {}))}[entry]
+                    PO.AdamWState(np.zeros((), np.int32), {}, {})),
+            "data_mesh()": lambda: S.data_mesh(),
+            "make_host_mesh()": lambda: LMESH.make_host_mesh(),
+            "VisionEngine(mesh=)":
+                lambda: VisionEngine(qnet, mesh=S.data_mesh(1)),
+            "compressed_psum":
+                lambda: GC.compressed_psum([{"g": x}], [{"g": x}])}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
