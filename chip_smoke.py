@@ -191,6 +191,31 @@ last line:
      its own batch's gradients and the residual a first all-reduce left:
      every summed and residual value bit for bit its plain version's on
      the CPU, ms beside the bytes bound. Prints the phase's seconds;
+  9b. dryrun: the distributed dense LM on the one card (`dist/sharding.py`
+     collectives, `models/lm/model.py`'s partitioned program,
+     `launch/{dryrun,roofline}.py`). [lm_train]'s step (full-depth bf16
+     Llama-3.2-1B, batch 8 x 128, `make_train_step`) traced on the (1, 1)
+     mesh of the card: its roofline terms and bound (its memory term the
+     bytes of the eager program, op by op) beside its measured ms and the
+     step's function bound (`lm_train_bounds`), the reckoned peak beside
+     `max_memory_allocated`. The same step on
+     TP (1, 2), DP (2, 1) and FSDP (2, 2) meshes that name `cuda:0`
+     repeatedly: the loss within LM_BF16_LOSS_RTOL of the mesh-less
+     step's; every mesh's bf16 gradients' worst leaf within
+     DRYRUN_FLOOR_X times the bf16 noise floor (the mesh-less bf16
+     gradients' worst distance from the float32 gradients of the same
+     weights, measured in the run) of those float32 gradients, and DP's
+     within LM_BF16_GRAD_L2 of the mesh-less step's; and the loss and
+     every gradient leaf of the float32 model at full width and depth
+     within LM_LOSS_RTOL / LM_GRAD_L2 of the mesh-less float32 ones. Each
+     mesh's step ms (median of DRYRUN_REPS), device busy and intervals
+     under torch.profiler, and collective operand bytes by kind: host
+     cost of one card standing for several devices, not scaling. A
+     decode step at 4 slots under TP (1, 2): logits within
+     LM_BF16_GRAD_L2 (relative L2) of the mesh-less step's, ms of both.
+     The dry-run's llama3.2-1b decode_32k 2x16x16 and train_4k 16x16
+     cells on meta devices must report `ok` (terms, bottleneck, memory,
+     seconds printed). K2-K6 launch counts must be 0;
  10. train: the training front end (`repro_torch.train.vision`) on the
      card. MobileNetV2 at the paper's full width (alpha 1.0, 224x224x3,
      1000 classes, w8/a8, BN, batch 32, 2 float + 2 QAT steps, an
@@ -349,7 +374,7 @@ def digests(act) -> list:
 
 
 def time_ms(fn, reps: int = REPS, device_only: bool = False,
-            flush=None, samples=None) -> float:
+            flush=None, samples=None, warmup: int = 3) -> float:
     """Median time of one call, CUDA events around each call: the call as
     the host sees it, its Python wrapper and launch cost included (the
     `ms` of every kernel line and of the JSON line). With `device_only`, a
@@ -360,9 +385,9 @@ def time_ms(fn, reps: int = REPS, device_only: bool = False,
     tensor of FLUSH_BYTES is zeroed before each call, outside the events,
     so that the call finds the L2 cache holding none of its inputs
     (`cold_device_ms`). With `samples`, a list, every time is appended to
-    it."""
+    it. `warmup` calls run first, untimed."""
     import torch
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
@@ -1831,6 +1856,355 @@ def phase_replicas(card):
           f"scaling across several cards: not verified (one card)")
     if bad:
         raise SystemExit(f"[replicas] failed: {'; '.join(bad)}")
+
+
+DRYRUN_MESHES = {"tp": ((1, 2), False), "dp": ((2, 1), False),
+                 "fsdp": ((2, 2), True)}  # (data, model) over cuda:0, fsdp
+DRYRUN_REPS = 3  # timed steps a mesh (median), after 1 warm-up
+DRYRUN_DECODE_REPS = 10  # timed decode steps each side (median)
+DRYRUN_BATCH = (8, 128)  # launch/train.py's defaults, as in [lm_train]
+DRYRUN_DECODE = (4, 16)  # decode slots, prompt length
+DRYRUN_CELLS = (("llama3.2-1b", "decode_32k", True),
+                ("llama3.2-1b", "train_4k", False))
+# A mesh's bf16 gradients from the float32 gradients of the same weights,
+# at most this many times the mesh-less bf16 gradients' own distance (the
+# bf16 noise floor, measured in the same run): two bf16 steps part by the
+# floor itself at full depth, above LM_BF16_GRAD_L2, so TP and FSDP are
+# held to the float32 truth rather than to the mesh-less bf16 step
+DRYRUN_FLOOR_X = 1.1
+
+
+def _gathered(x):
+    from repro_torch.dist.sharding import Sharded
+    return x.gather(x.parts[0].device) if isinstance(x, Sharded) else x
+
+
+def _placed_model(cfg, params, logical, mesh, fsdp, tokens):
+    """`params` and a batch of `tokens` placed on `mesh` as the dry-run
+    places them (tree_shardings; rows over the data axes)."""
+    from repro_torch.dist import sharding as S
+    from repro_torch.train import tree as T
+
+    with S.use_mesh(mesh, fsdp=fsdp):
+        sh = S.tree_shardings(logical, mesh, fsdp=fsdp, shapes=params)
+        placed = T.tree_map(S.place, params, sh)
+        rows = S.NamedSharding(mesh, S.logical_to_spec(("batch", None),
+                                                       mesh))
+        return placed, S.place(tokens, rows)
+
+
+def _leaf_errors(names, want, got, dev):
+    """(worst relative L2 distance, its leaf) of `got`'s gradient leaves
+    (placed ones gathered) from `want`'s, each leaf moved to `dev` in
+    turn."""
+    import torch
+
+    from repro_torch.train import parity as PP
+    from repro_torch.train import tree as T
+
+    worst, where = 0.0, ""
+    with torch.no_grad():
+        for name, a, g in zip(names, T.leaves(want), T.leaves(got)):
+            e = PP._rel_l2(PP._as_tensor(a, dev),
+                           PP._as_tensor(_gathered(g), dev))
+            if e > worst:
+                worst, where = e, name
+    return worst, where
+
+
+def dryrun_train(card, dev):
+    """(a) and (d): the train step [lm_train] runs through
+    `launch/train.py` (full-depth bf16 Llama-3.2-1B, batch 8 x 128,
+    make_train_step) without a mesh, then on
+    TP (1, 2), DP (2, 1) and FSDP (2, 2) meshes that name the card
+    repeatedly: the loss against the mesh-less one (LM_BF16_LOSS_RTOL),
+    ms, device intervals and collective bytes; the bf16 gradients' worst
+    leaf from the float32 gradients of the same weights within
+    DRYRUN_FLOOR_X times the mesh-less bf16 gradients' own (the bf16
+    noise floor), and DP's from the mesh-less step's within
+    LM_BF16_GRAD_L2. The partitioned loss and gradients also in float32
+    at full width and depth against the mesh-less float32 ones
+    (LM_LOSS_RTOL, LM_GRAD_L2). The mesh-less step also traced on the
+    (1, 1) mesh of the card (`launch/roofline.trace_step`): the bound of
+    its eager program beside its ms and its function bound
+    (`lm_train_bounds`), the reckoned peak beside the allocator's.
+    Returns the failures."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, lm_batch
+    from repro_torch.launch import roofline as RL
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.layers import exact_f32
+    from repro_torch.models.lm import model as M
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import parity as PP
+    from repro_torch.train.train_loop import (
+        _psum_data,
+        make_train_step,
+        value_and_grad,
+    )
+
+    cfg = get_config("llama3.2-1b")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    b, s = DRYRUN_BATCH
+    params, logical = M.init_params(cfg, 0, device=dev)
+    tokens = torch.from_numpy(lm_batch(DataConfig(
+        seed=0, vocab=cfg.vocab, seq_len=s, global_batch=b), 0)["tokens"]
+    ).long()
+    opt_cfg = O.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=100)
+    step = make_train_step(cfg, opt_cfg)
+    names = PP._leaf_names(params)
+
+    def grads_of(c, p, bb):
+        with exact_f32():
+            out = value_and_grad(lambda q, x: M.loss_fn(q, c, x), p, bb)
+        return out[0], _psum_data(out[2])
+
+    def to32(p):
+        return M.tree_map(lambda t: t.to(torch.float32), p)
+
+    # the float32 gradients of the same (bf16-valued) weights, kept on the
+    # host: the yardstick of the bf16 noise floor
+    loss32, g32 = grads_of(cfg32, to32(params), {"tokens": tokens.to(dev)})
+    g32 = M.tree_map(lambda t: t.cpu(), g32)
+    torch.cuda.empty_cache()
+
+    # (d) the (1, 1) mesh of the card: the device path, traced
+    one = make_mesh((1, 1), ("data", "model"), devices=[dev])
+    state = O.init_state(params)
+    batch = {"tokens": tokens.to(dev)}
+    args_bytes = RL.tensor_bytes((params, state, batch))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trace = RL.trace_step(lambda: step(params, state, batch), one)
+    torch.cuda.synchronize()
+    measured_peak = torch.cuda.max_memory_allocated()
+    del trace.output
+    roof = RL.from_trace(trace, 1)
+    ms = {}
+    ms["none"] = time_ms(lambda: step(params, state, batch), DRYRUN_REPS,
+                         warmup=1)
+    prof = {"none": profile_steps(lambda: step(params, state, batch))}
+    coll = {"none": {}}
+    del state
+    torch.cuda.empty_cache()
+    loss0, g0 = grads_of(cfg, params, batch)
+    floor = _leaf_errors(names, g32, g0, dev)
+    r = roof.summary()
+    flop_ms, opt_ms = (lm_train_bounds(cfg, b, s)[i] for i in (1, 3))
+    print(f"[dryrun] (d) {card}: [lm_train]'s step (Llama-3.2-1B full depth "
+          f"bf16, batch {b} x {s}) on the (1, 1) mesh of the card, traced: "
+          f"{roof.flops / 1e12:.4f} TFLOP (matmuls), "
+          f"{roof.hbm_bytes / 1e9:.3f} GB the eager program reads and "
+          f"writes op by op (not the bytes the step needs), "
+          f"{roof.coll_bytes:.0f} collective bytes; terms compute "
+          f"{r['t_compute_s'] * 1e3:.4f} ms, memory (eager program) "
+          f"{r['t_memory_s'] * 1e3:.4f} ms, collective "
+          f"{r['t_collective_s'] * 1e3:.4f} ms; the eager program's t_bound "
+          f"{roof.t_bound * 1e3:.4f} ms ({roof.bottleneck}) and the step's "
+          f"function bound {flop_ms + opt_ms:.4f} ms (lm_train_bounds: "
+          f"matmuls at the bf16 peak plus AdamW's bytes once) beside the "
+          f"measured step {ms['none']:.4f} ms; reckoned peak "
+          f"{(args_bytes + trace.peak_live_bytes) / 2**30:.3f} GiB "
+          f"(arguments {args_bytes / 2**30:.3f} + the step's live "
+          f"{trace.peak_live_bytes / 2**30:.3f}) beside "
+          f"max_memory_allocated {measured_peak / 2**30:.3f} GiB; "
+          f"trace {trace.seconds:.1f} s")
+    print(f"[dryrun] (a) the bf16 noise floor: the mesh-less bf16 "
+          f"gradients' worst leaf is {floor[0]:.3g} ({floor[1]}) from the "
+          f"float32 gradients of the same weights")
+
+    bad = []
+    for tag, (shape, fsdp) in DRYRUN_MESHES.items():
+        t0 = time.perf_counter()
+        mesh = make_mesh(shape, ("data", "model"),
+                         devices=[dev] * (shape[0] * shape[1]))
+        pp, tok = _placed_model(cfg, params, logical, mesh, fsdp, tokens)
+        pbatch = {"tokens": tok}
+        state = O.init_state(pp)
+        mesh.collectives.reset()
+        out = step(pp, state, pbatch)
+        torch.cuda.synchronize()
+        coll[tag] = mesh.collectives.snapshot()
+        del out
+        ms[tag] = time_ms(lambda: step(pp, state, pbatch), DRYRUN_REPS,
+                          warmup=1)
+        prof[tag] = profile_steps(lambda: step(pp, state, pbatch))
+        del state
+        torch.cuda.empty_cache()
+        loss1, g1 = grads_of(cfg, pp, pbatch)
+        loss_err = abs(float(loss1) - float(loss0)) / abs(float(loss0))
+        apart = _leaf_errors(names, g0, g1, dev)
+        truth = _leaf_errors(names, g32, g1, dev)
+        del pp, tok, pbatch, g1
+        torch.cuda.empty_cache()
+        # float32: the partitioning itself, at full width and depth
+        pp, tok = _placed_model(cfg32, to32(params), logical, mesh, fsdp,
+                                tokens)
+        l32, g = grads_of(cfg32, pp, {"tokens": tok})
+        err32 = abs(float(l32) - float(loss32)) / abs(float(loss32))
+        worst32 = _leaf_errors(names, g32, g, dev)
+        del pp, tok, g
+        torch.cuda.empty_cache()
+        limit = DRYRUN_FLOOR_X * floor[0]
+        apart_bound = PP.LM_BF16_GRAD_L2 if tag == "dp" else None
+        ok = (loss_err <= PP.LM_BF16_LOSS_RTOL and err32 <= PP.LM_LOSS_RTOL
+              and worst32[0] <= PP.LM_GRAD_L2 and truth[0] <= limit
+              and (apart_bound is None or apart[0] <= apart_bound))
+        print(f"[dryrun] (a) {tag} {dict(mesh.shape)} fsdp={fsdp} on "
+              f"[{dev}] x {mesh.size}: bf16 loss {float(loss1):.6f} "
+              f"against {float(loss0):.6f} without a mesh (rel "
+              f"{loss_err:.3g}, bound {PP.LM_BF16_LOSS_RTOL}); bf16 "
+              f"gradients' worst leaf {truth[0]:.3g} ({truth[1]}) from the "
+              f"float32 gradients (bound {DRYRUN_FLOOR_X} x the floor "
+              f"{floor[0]:.3g} = {limit:.3g}) and {apart[0]:.3g} "
+              f"({apart[1]}) from the mesh-less bf16 step's (bound "
+              f"{apart_bound or 'none: two bf16 steps part by the floor'}); "
+              f"float32 loss rel {err32:.3g} (bound {PP.LM_LOSS_RTOL}), "
+              f"worst float32 gradient leaf {worst32[0]:.3g} ({worst32[1]}; "
+              f"bound {PP.LM_GRAD_L2}); {'ok' if ok else 'FAILED'} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        if not ok:
+            bad.append(f"{tag}: bf16 loss {loss_err:.3g}, bf16 grads "
+                       f"{truth[0]:.3g} from float32 (limit {limit:.3g}), "
+                       f"{apart[0]:.3g} from the mesh-less step, float32 "
+                       f"loss {err32:.3g}, float32 grads {worst32[0]:.3g} "
+                       f"({worst32[1]})")
+    for tag in ("none", *DRYRUN_MESHES):
+        p = prof[tag]
+        busy = ("not measured" if p is None else
+                f"device busy {p['busy_ms']:.3f} ms, "
+                f"{p['intervals']:.0f} device intervals")
+        c = coll[tag]
+        moved = ", ".join(f"{k} {v}" for k, v in c.items()
+                          if k != "n_ops" and v) or "none"
+        print(f"[dryrun] (a) {card}: step on {tag}: {ms[tag]:.4f} ms "
+              f"(median of {DRYRUN_REPS}, {ms[tag] / ms['none']:.3f} x "
+              f"without a mesh); {busy}; collective operand bytes a "
+              f"device: {moved} ({c.get('n_ops', 0)} collectives): host "
+              f"cost of one card standing for {tag}'s devices, not "
+              f"scaling")
+    del params, g0, g32
+    torch.cuda.empty_cache()
+    return bad
+
+
+def dryrun_decode(card, dev):
+    """(b) a decode step at DRYRUN_DECODE[0] slots under TP (1, 2) on the
+    card against the mesh-less step: logits within LM_BF16_GRAD_L2 in
+    relative L2 over the real vocab, greedy tokens compared; ms of
+    both."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding as S
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.lm import model as M
+    from repro_torch.train import parity as PP
+
+    cfg = get_config("llama3.2-1b")
+    slots, plen = DRYRUN_DECODE
+    params, logical = M.init_params(cfg, 0, device=dev)
+    rng = np.random.default_rng(30)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (slots, plen)))
+    nxt = torch.from_numpy(rng.integers(0, cfg.vocab, (slots, 1)))
+    max_len = plen + 8
+    mesh = make_mesh((1, 2), ("data", "model"), devices=[dev, dev])
+    pp, tok = _placed_model(cfg, params, logical, mesh, False, prompt)
+    rows = tok.sharding
+    with torch.no_grad():
+        _, cache = M.prefill(params, cfg, prompt.to(dev), max_len)
+        _, pcache = M.prefill(pp, cfg, tok, max_len)
+        want, _ = M.decode_step(params, cfg, nxt.to(dev), cache, plen)
+        ptok = S.place(nxt, rows)
+        got, _ = M.decode_step(pp, cfg, ptok, pcache, plen)
+        got = got.gather(dev)
+        ms_plain = time_ms(lambda: M.decode_step(params, cfg, nxt.to(dev),
+                                                 cache, plen),
+                           DRYRUN_DECODE_REPS, warmup=1)
+        ms_tp = time_ms(lambda: M.decode_step(pp, cfg, ptok, pcache, plen),
+                        DRYRUN_DECODE_REPS, warmup=1)
+    v = cfg.vocab
+    err = PP._rel_l2(PP._as_tensor(want[..., :v], dev),
+                     PP._as_tensor(got[..., :v], dev))
+    same = int((want[..., :v].argmax(-1) == got[..., :v].argmax(-1)).sum())
+    ok = err <= PP.LM_BF16_GRAD_L2 and bool(torch.isfinite(got[..., :v])
+                                            .all())
+    print(f"[dryrun] (b) {card}: decode step at {slots} slots after a "
+          f"{plen}-token prefill, Llama-3.2-1B full depth bf16, TP (1, 2) "
+          f"on [{dev}] x 2: logits {err:.3g} from the mesh-less step's in "
+          f"relative L2 (bound {PP.LM_BF16_GRAD_L2}), greedy tokens equal "
+          f"{same} of {slots}; {'ok' if ok else 'FAILED'}; decode ms "
+          f"{ms_tp:.4f} on TP against {ms_plain:.4f} without a mesh "
+          f"(median of {DRYRUN_DECODE_REPS})")
+    del params, pp, cache, pcache
+    torch.cuda.empty_cache()
+    return [] if ok else [f"decode logits {err:.3g}"]
+
+
+def dryrun_cells(card):
+    """(c) JAX's own dry-run test cell and a train cell on meta devices."""
+    import tempfile
+
+    from repro_torch.launch import dryrun as D
+
+    bad = []
+    with tempfile.TemporaryDirectory() as out:
+        for arch, shape, multi_pod in DRYRUN_CELLS:
+            t0 = time.perf_counter()
+            rep = D.run_cell(arch, D.shape_by_name(shape),
+                             multi_pod=multi_pod, out_dir=out)
+            secs = time.perf_counter() - t0
+            if rep["status"] != "ok":
+                bad.append(f"{rep['cell']}: {rep['status']} "
+                           f"{rep.get('error', '')}")
+                continue
+            r, m = rep["roofline"], rep["memory"]
+            print(f"[dryrun] (c) {rep['cell']}: ok on "
+                  f"{'512' if multi_pod else '256'} meta devices; per "
+                  f"device {r['flops_per_device']:.6g} FLOP, "
+                  f"{r['hbm_bytes_per_device']:.6g} bytes, collectives "
+                  f"{r['collective_bytes_per_device']:.6g} bytes "
+                  f"{ {k: v for k, v in r['collectives'].items() if v} }; "
+                  f"terms at {card}'s data-sheet rates: compute "
+                  f"{r['t_compute_s']:.4g} s, memory {r['t_memory_s']:.4g} "
+                  f"s, collective {r['t_collective_s']:.4g} s, bottleneck "
+                  f"{r['bottleneck']}; memory argument "
+                  f"{m['argument_bytes'] / 2**30:.3f} GiB, peak (reckoned) "
+                  f"{m['peak_bytes'] / 2**30:.3f} GiB; useful FLOPs "
+                  f"{rep['useful_flops_ratio']:.4f}; traced in "
+                  f"{rep['t_compile_s']} s, cell {secs:.1f} s")
+    return bad
+
+
+def phase_dryrun(card):
+    """The distributed LM on the card: TP, DP and FSDP train steps and a
+    TP decode against the mesh-less ones, the dry-run's production cells
+    on meta devices, and the card's own roofline cell; K2-K6 launch
+    none."""
+    import torch
+
+    from repro_torch.kernels import ops as K
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    K.reset_launch_counts()
+    bad = dryrun_train(card, dev)
+    bad += dryrun_decode(card, dev)
+    bad += dryrun_cells(card)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    if any(counts.values()):
+        bad.append(f"kernel launches {counts}")
+    print(f"[dryrun] K2-K6 launches {counts} (must be 0); phase "
+          f"{time.perf_counter() - t_phase:.1f} s; scaling across several "
+          f"cards: not verified (one card)")
+    if bad:
+        raise SystemExit(f"[dryrun] failed: {'; '.join(bad)}")
 
 
 def tune_net(m, q, card):
@@ -3346,6 +3720,7 @@ def main() -> int:
     phase_fixed_point(imgs, card)
     launches = phase_fleet(card)  # the serving path: both nets
     phase_replicas(card)
+    phase_dryrun(card)
     phase_tune(card)
     phase_precision(card)
     phase_train(card, torch.device("cuda", torch.cuda.current_device()))

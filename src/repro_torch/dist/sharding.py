@@ -27,9 +27,32 @@ Logical axes (model code names axes 'batch', 'heads', 'ffn', 'vocab',
   * a name that IS a mesh axis passes through verbatim
 
 `shard(x, *axes)` returns `x`: a layout hint that never changes a number.
-Tensor parallelism over a 'model' axis, and FSDP over 'data', wait for the
-dry-run (ROADMAP queue 1 item 13): `use_mesh` refuses a mesh that would
-need them.
+The port has no partitioner to read such hints; a program that runs on a
+mesh partitions itself (explicit SPMD, `models/lm/model.py` for the dense
+LMs): each op runs on each device's block in mesh order, and the
+collectives below join those steps.
+
+Collectives over mesh axes (`psum`, `enter`, `all_gather`, `pmax`): each
+takes the blocks of every executed device and returns theirs, a sum being
+a left fold in mesh order (XLA's CPU all-reduce order, as
+`compressed_psum`'s). `psum`, `enter` and `all_gather` are autograd
+functions with explicit backward passes, so that one backward pass over a
+partitioned program trains every block, as `jax.grad` does through GSPMD:
+all-gather's backward is a reduce-scatter, psum's is the identity and
+`enter`'s (the identity) is a psum. That pairing holds because a value
+replicated over an axis carries one cotangent, which each device holds
+whole (Megatron's f and g): a replicated loss is differentiated on every
+device with a cotangent of 1. Every collective adds its operand bytes (one
+device's) by kind to its mesh's `collectives` counter, backward passes
+included: the port's stand-in for the collective bytes the reference
+reads from its HLO.
+
+On a mesh of meta devices (the dry-run's 256 and 512 chips) one device's
+program stands for every device's: a meta tensor has a shape and no
+values, and every device's block has the same shape (`_fit_spec_to_shape`
+splits only what divides), so a placed value holds the block of the
+mesh's first device alone and each collective takes that block for every
+member of its group.
 """
 from __future__ import annotations
 
@@ -68,9 +91,35 @@ class P(tuple):
         return f"P{tuple.__repr__(self)}"
 
 
+COLLECTIVE_KINDS = ("all-gather", "all-reduce", "reduce-scatter",
+                    "all-to-all", "collective-permute")
+
+
+class CollectiveCounter:
+    """Operand bytes of the collectives run on a mesh, by kind, one
+    device's (every device of a group moves the same), and their number."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.bytes = {k: 0 for k in COLLECTIVE_KINDS}
+        self.n_ops = 0
+
+    def add(self, kind: str, nbytes: int) -> None:
+        self.bytes[kind] += int(nbytes)
+        self.n_ops += 1
+
+    def snapshot(self) -> dict:
+        return {**self.bytes, "n_ops": self.n_ops}
+
+
 class Mesh:
     """Devices on named axes: `devices` an object array of `torch.device`s
-    whose dims are `axis_names`; `shape` maps each name to its extent."""
+    whose dims are `axis_names`; `shape` maps each name to its extent.
+    `collectives` counts what the collectives on it moved. On a mesh of
+    meta devices (`symmetric`) the first device's program stands for all
+    (`executed` is (0,); see the module docstring)."""
 
     def __init__(self, devices, axis_names: Sequence[str]):
         from repro_torch.core.cu import resolve_device
@@ -84,6 +133,28 @@ class Mesh:
         if self.devices.ndim != len(self.axis_names):
             raise ValueError(f"devices of shape {self.devices.shape} for "
                              f"axes {self.axis_names}")
+        self.symmetric = all(d.type == "meta" for d in flat)
+        self.executed = (0,) if self.symmetric else tuple(range(flat.size))
+        self.collectives = CollectiveCounter()
+        self._groups = {}
+
+    def groups(self, axes: Sequence[str]) -> Tuple[Tuple[int, ...], ...]:
+        """For each flat device index, the flat indices of its group over
+        `axes` (the devices that differ from it only along `axes`), in
+        mesh order."""
+        axes = tuple(a for a in self.axis_names if a in axes)
+        if axes not in self._groups:
+            idx = np.arange(self.size).reshape(self.devices.shape)
+            pos = [self.axis_names.index(a) for a in axes]
+            rest = [i for i in range(idx.ndim) if i not in pos]
+            rows = idx.transpose(rest + pos).reshape(
+                -1, math.prod(idx.shape[i] for i in pos) if pos else 1)
+            out = [None] * self.size
+            for row in rows:
+                for i in row:
+                    out[int(i)] = tuple(int(j) for j in row)
+            self._groups[axes] = tuple(out)
+        return self._groups[axes]
 
     @property
     def shape(self) -> "collections.OrderedDict[str, int]":
@@ -142,12 +213,6 @@ def current_mesh() -> Optional[Mesh]:
 @contextlib.contextmanager
 def use_mesh(mesh: Mesh, fsdp: bool = False):
     """Activate `mesh` for `shard` / `axis_size` within the context."""
-    sizes = dict(mesh.shape)
-    if sizes.get("model", 1) > 1 or (fsdp and sizes.get("data", 1) > 1):
-        raise NotImplementedError(
-            f"mesh {sizes} (fsdp={fsdp}) needs tensor parallelism over "
-            f"'model' or FSDP over 'data', which the port does not run: "
-            f"they wait for the dry-run (ROADMAP queue 1 item 13)")
     prev = (_STATE.mesh, _STATE.fsdp)
     _STATE.mesh, _STATE.fsdp = mesh, fsdp
     try:
@@ -325,8 +390,9 @@ def _slices(sharding: NamedSharding, i: int, shape) -> Tuple[slice, ...]:
 
 
 class Sharded:
-    """A value placed on a mesh of several devices: `parts[i]` is the block
-    the mesh's flat `i`-th device holds under `sharding`."""
+    """A value placed on a mesh of several devices: `parts[k]` is the block
+    the mesh's `executed[k]`-th device holds under `sharding` (every
+    device's, in flat order; on a meta mesh the first device's alone)."""
 
     __slots__ = ("parts", "sharding")
 
@@ -396,9 +462,10 @@ def place(x, sharding: NamedSharding, *, non_blocking: bool = False):
     mesh = sharding.mesh
     if mesh.size == 1:
         return _put(x, mesh.device_list[0], non_blocking, copy=False)
-    return Sharded([_put(x[_slices(sharding, i, x.shape)], dev,
+    devs = mesh.device_list
+    return Sharded([_put(x[_slices(sharding, i, x.shape)], devs[i],
                          non_blocking, copy=True)
-                    for i, dev in enumerate(mesh.device_list)], sharding)
+                    for i in mesh.executed], sharding)
 
 
 def replicate(x, mesh: Optional[Mesh]):
@@ -412,6 +479,193 @@ def replicate(x, mesh: Optional[Mesh]):
 def parts_of(x) -> Tuple[torch.Tensor, ...]:
     """The device blocks of a placed value (a tensor is its own block)."""
     return x.parts if isinstance(x, Sharded) else (x,)
+
+
+def spec_axes(spec: P) -> Tuple[str, ...]:
+    """The mesh axes a spec splits over."""
+    return tuple(n for e in spec if e is not None for n in _names(e))
+
+
+def leafwise(fn, *xs):
+    """`fn` on every device's block of the placed values `xs` (plain
+    tensors and scalars are every device's), the first `Sharded`'s layout
+    kept; `fn(*xs)` where none is a `Sharded`."""
+    lead = next((x for x in xs if isinstance(x, Sharded)), None)
+    if lead is None:
+        return fn(*xs)
+    return Sharded([fn(*(x.parts[k] if isinstance(x, Sharded) else x
+                         for x in xs)) for k in range(len(lead.parts))],
+                   lead.sharding)
+
+
+# ---------------------------------------------------------------------------
+# collectives over mesh axes (explicit SPMD; see the module docstring)
+# ---------------------------------------------------------------------------
+
+
+class _Flag(threading.local):
+    def __init__(self):
+        self.on = False
+
+
+_IN_COLLECTIVE = _Flag()
+
+
+def in_collective() -> bool:
+    """Is a collective moving data now? (Its copies and sums are not the
+    program's own work: a trace counts them as collective bytes.)"""
+    return _IN_COLLECTIVE.on
+
+
+@contextlib.contextmanager
+def _moving():
+    prev, _IN_COLLECTIVE.on = _IN_COLLECTIVE.on, True
+    try:
+        yield
+    finally:
+        _IN_COLLECTIVE.on = prev
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _members(mesh: Mesh, axes) -> list:
+    """For each executed device, the positions in `executed` of its group
+    over `axes`, in mesh order (the first device's for every member on a
+    meta mesh)."""
+    groups = mesh.groups(axes)
+    if mesh.symmetric:
+        return [[0] * len(groups[0])]
+    return [list(groups[i]) for i in mesh.executed]
+
+
+def _fold(xs, members, op):
+    """out[k] = op-fold of xs over k's group, left to right, on k's device;
+    each group's result is computed once and copied to its other members
+    (every device its own buffer)."""
+    out, done = [None] * len(members), {}
+    for k, grp in enumerate(members):
+        key = tuple(grp)
+        dev = xs[k].device
+        if key not in done:
+            acc = xs[grp[0]].to(dev, copy=True)
+            for j in grp[1:]:
+                acc = op(acc, xs[j].to(dev))
+            done[key] = acc
+            out[k] = acc
+        else:
+            out[k] = done[key].to(dev, copy=True)
+    return out
+
+
+def _psum_parts(xs, members):
+    return _fold(xs, members, torch.add)
+
+
+class _PSum(torch.autograd.Function):
+    """Forward: the sum over each group (an all-reduce). Backward: the
+    identity (the sum is replicated over the group; its one cotangent
+    stands on every member)."""
+
+    @staticmethod
+    def forward(ctx, mesh, axes, *xs):
+        mesh.collectives.add("all-reduce", _nbytes(xs[0]))
+        with _moving():
+            return tuple(_psum_parts(xs, _members(mesh, axes)))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None, *gs)
+
+
+class _Enter(torch.autograd.Function):
+    """Forward: the identity (a value replicated over `axes` entering work
+    split over them). Backward: the sum of the members' partial
+    cotangents (an all-reduce)."""
+
+    @staticmethod
+    def forward(ctx, mesh, axes, *xs):
+        ctx.mesh, ctx.axes = mesh, axes
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        ctx.mesh.collectives.add("all-reduce", _nbytes(gs[0]))
+        with _moving():
+            return (None, None, *_psum_parts(gs, _members(ctx.mesh,
+                                                          ctx.axes)))
+
+
+class _AllGather(torch.autograd.Function):
+    """Forward: each group's blocks concatenated along `dim` in mesh order.
+    Backward: a reduce-scatter (the sum of the members' cotangents, each
+    member keeping its own block)."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis, dim, *xs):
+        members = _members(mesh, (axis,))
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        ctx.size = xs[0].shape[dim]
+        mesh.collectives.add("all-gather", _nbytes(xs[0]))
+        with _moving():
+            return tuple(torch.cat([xs[j].to(xs[k].device) for j in grp],
+                                   dim=dim)
+                         for k, grp in enumerate(members))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        mesh = ctx.mesh
+        members = _members(mesh, (ctx.axis,))
+        ctx.mesh.collectives.add("reduce-scatter", _nbytes(gs[0]))
+        with _moving():
+            total = _psum_parts(gs, members)
+            pos = ([0] if mesh.symmetric else
+                   [mesh.groups((ctx.axis,))[i].index(i)
+                    for i in mesh.executed])
+            return (None, None, None, *(
+                t.narrow(ctx.dim, p * ctx.size, ctx.size).contiguous()
+                for t, p in zip(total, pos)))
+
+
+def _axes(mesh: Mesh, axes) -> Tuple[str, ...]:
+    """`axes` present on `mesh` with more than one device."""
+    sizes = dict(mesh.shape)
+    return tuple(a for a in axes if sizes.get(a, 1) > 1)
+
+
+def psum(xs, mesh: Mesh, axes) -> list:
+    """The sum of each device's block over its group along `axes`; the
+    blocks themselves where those axes hold one device."""
+    axes = _axes(mesh, axes)
+    return list(_PSum.apply(mesh, axes, *xs)) if axes else list(xs)
+
+
+def enter(xs, mesh: Mesh, axes) -> list:
+    """Blocks replicated over `axes` entering work split over them: the
+    same values, whose cotangents are summed over the group."""
+    axes = _axes(mesh, axes)
+    return list(_Enter.apply(mesh, axes, *xs)) if axes else list(xs)
+
+
+def all_gather(xs, mesh: Mesh, axis: str, dim: int) -> list:
+    """Each device's group's blocks (along `axis`) joined along `dim`."""
+    if not _axes(mesh, (axis,)):
+        return list(xs)
+    dim = dim % xs[0].dim()
+    return list(_AllGather.apply(mesh, axis, dim, *xs))
+
+
+def pmax(xs, mesh: Mesh, axes) -> list:
+    """The elementwise maximum over each group along `axes` (no gradient:
+    a statistic, as `jax.lax.stop_gradient` of a max)."""
+    axes = _axes(mesh, axes)
+    if not axes:
+        return list(xs)
+    mesh.collectives.add("all-reduce", _nbytes(xs[0]))
+    with torch.no_grad(), _moving():
+        return _fold([x.detach() for x in xs], _members(mesh, axes),
+                     torch.maximum)
 
 
 __all__ = [
@@ -433,4 +687,13 @@ __all__ = [
     "place",
     "parts_of",
     "visible_devices",
+    "COLLECTIVE_KINDS",
+    "CollectiveCounter",
+    "in_collective",
+    "spec_axes",
+    "leafwise",
+    "psum",
+    "enter",
+    "all_gather",
+    "pmax",
 ]

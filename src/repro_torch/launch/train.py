@@ -23,10 +23,18 @@ card and fails where there is none):
 
 Parameters are placed as the reference places them: under
 `use_mesh(make_host_mesh(...))`, through `tree_shardings` of the model's
-logical axes. The port's train step runs on one device, so the host mesh
-is the (1, 1) mesh of the device it trains on, where every placement is
-that device and no number moves; a data-parallel step over several cards
-(the reference's pjit over its host mesh) is not ported.
+logical axes. For the dense family without `--grad-compress`, and a
+`--device` that names no index (`cuda`, the default, or `cpu`), the host
+mesh spans every visible device of that type ((n, 1) on ('data',
+'model'): every card, or the one CPU), and the step is data-parallel over
+it, as the reference's pjit over its host mesh: each device holds the
+parameters whole and its rows of each batch (`--batch` must divide by
+n), and the gradients are psummed over 'data' (the partitioned dense
+step, `models/lm/model.py`). Otherwise (the other families, whose
+partitioning is not ported yet, `--grad-compress`, or a device named by
+index such as `cuda:1`) the host mesh is the (1, 1) mesh of that one
+device, as before. On one device every placement is that device and no
+number moves.
 """
 from __future__ import annotations
 
@@ -39,7 +47,13 @@ import torch
 from repro_torch.configs import ARCHS, get_config, reduced_config
 from repro_torch.core.cu import resolve_device
 from repro_torch.data.pipeline import DataConfig, lm_stream
-from repro_torch.dist.sharding import place, tree_shardings, use_mesh
+from repro_torch.dist.sharding import (
+    P,
+    NamedSharding,
+    place,
+    tree_shardings,
+    use_mesh,
+)
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.lm import model as M
 from repro_torch.train import checkpoint as CKPT
@@ -80,7 +94,13 @@ def main(argv=None):
 
     dev = resolve_device(args.device)
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
-    mesh = make_host_mesh(devices=[dev])
+    spans = (cfg.family == "dense" and not args.grad_compress
+             and (args.device is None
+                  or torch.device(args.device).index is None))
+    mesh = (make_host_mesh(device=dev) if spans
+            else make_host_mesh(devices=[dev]))
+    dev = mesh.device_list[0]
+    rows = NamedSharding(mesh, P("data", None))
     data_cfg = DataConfig(seed=args.seed, vocab=cfg.vocab,
                           seq_len=args.seq, global_batch=args.batch)
     opt_cfg = O.AdamWConfig(lr=args.lr, warmup_steps=min(20, args.steps // 5),
@@ -127,7 +147,7 @@ def main(argv=None):
         t0 = time.time()
         stream = lm_stream(data_cfg, start_step)
         for step in range(start_step, args.steps):
-            batch = {k: torch.from_numpy(v).to(dev).long()
+            batch = {k: place(torch.from_numpy(v).long(), rows)
                      for k, v in next(stream).items()}
             watchdog.start()
             if args.grad_compress:

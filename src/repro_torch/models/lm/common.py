@@ -18,6 +18,10 @@ run in f32 on operands upcast from their storage type (the JAX einsums'
 clamped index `jax.lax.dynamic_update_slice` would use. A KV cache is
 written in place (the positions of this call only) and returned; the JAX
 model returns a new cache, which XLA updates in place under jit.
+
+`attention_spmd` and `mlp_spmd` are the dense blocks partitioned over a
+mesh (`Spmd`: the layout GSPMD makes of the reference's annotations,
+written out).
 """
 from __future__ import annotations
 
@@ -38,15 +42,28 @@ def dt(cfg: LMConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+class MetaGenerator:
+    """Stands for a generator on the meta device, which has none: a draw
+    there is a tensor of the shape and type, without values (the
+    reference's `jax.eval_shape` of an init)."""
+
+    device = torch.device("meta")
+
+
+def _draws(gen):
+    return None if isinstance(gen, MetaGenerator) else gen
+
+
 def normal(gen: torch.Generator, shape, std: float = 1.0) -> torch.Tensor:
     """f32 N(0, std^2) drawn on the generator's device."""
-    return std * torch.randn(shape, generator=gen, device=gen.device,
+    return std * torch.randn(shape, generator=_draws(gen), device=gen.device,
                              dtype=F32)
 
 
 def uniform(gen: torch.Generator, shape, lo: float, hi: float):
     """f32 U[lo, hi) drawn on the generator's device."""
-    u = torch.rand(shape, generator=gen, device=gen.device, dtype=F32)
+    u = torch.rand(shape, generator=_draws(gen), device=gen.device,
+                   dtype=F32)
     return lo + (hi - lo) * u
 
 
@@ -318,6 +335,23 @@ def attention_block(p, x, cfg: LMConfig, positions, *, causal=True,
             kpos = cache_pos + torch.arange(k.shape[1], device=x.device)
         k = rope(k, kpos, cfg.rope_theta)
 
+    out, new_cache = attend(q, k, v, causal=causal, window=window,
+                            kv_cache=kv_cache, cache_pos=cache_pos,
+                            cross=xk is not None)
+    out = out.reshape(*x.shape[:-1], cfg.n_heads * hd)
+    return linear(out, p["wo"]), new_cache
+
+
+def attend(q, k, v, *, causal=True, window: int = 0, kv_cache=None,
+           cache_pos=None, cross: bool = False, kv_heads=None):
+    """The attention of `attention_block` after its projections: q
+    [B, S, H, dh] against k/v [B, S, KV, dh], through the KV cache where
+    there is one (written in place as there). `kv_heads` (a slice) keeps
+    those KV heads of k, v or the cache for the attention itself: the
+    groups of the q heads a device holds under tensor parallelism."""
+    def pick(t):
+        return t if kv_heads is None else t[:, :, kv_heads]
+
     new_cache = kv_cache
     quant = kv_cache is not None and "k_scale" in kv_cache
 
@@ -348,14 +382,16 @@ def attention_block(p, x, cfg: LMConfig, positions, *, causal=True,
                 posc = update_slice(
                     kv_cache["pos"],
                     cache_pos + torch.arange(k.shape[1], dtype=torch.int32,
-                                             device=x.device), idx, 0)
+                                             device=q.device), idx, 0)
                 new_cache["pos"] = posc
-                out = pos_attention(q, kd, vd, posc, cache_pos, window)
+                out = pos_attention(q, pick(kd), pick(vd), posc, cache_pos,
+                                    window)
             else:
-                kv_len = torch.full((x.shape[0],), cache_pos + k.shape[1],
-                                    dtype=torch.int32, device=x.device)
-                out = full_attention(q, kd, vd, causal=False, window=window,
-                                     kv_offset=cache_pos, kv_len=kv_len)
+                kv_len = torch.full((q.shape[0],), cache_pos + k.shape[1],
+                                    dtype=torch.int32, device=q.device)
+                out = full_attention(q, pick(kd), pick(vd), causal=False,
+                                     window=window, kv_offset=cache_pos,
+                                     kv_len=kv_len)
         else:  # prefill: fill the cache from 0
             size = kv_cache["k"].shape[1]
             s = k.shape[1]
@@ -370,7 +406,7 @@ def attention_block(p, x, cfg: LMConfig, positions, *, causal=True,
                 posc = update_slice(
                     kv_cache["pos"],
                     torch.arange(s - take, s, dtype=torch.int32,
-                                 device=x.device), 0, 0)
+                                 device=q.device), 0, 0)
                 new_cache = {"k": kc, "v": vc, "pos": posc}
             else:
                 kc, ks = _store(k, kv_cache["k"], kv_cache.get("k_scale"), 0)
@@ -378,13 +414,12 @@ def attention_block(p, x, cfg: LMConfig, positions, *, causal=True,
                 new_cache = {"k": kc, "v": vc}
             if quant:
                 new_cache.update(k_scale=ks, v_scale=vs)
-            out = _self_attn(q, k, v, causal, window)
-    elif xk is None:
-        out = _self_attn(q, k, v, causal, window)
+            out = _self_attn(q, pick(k), pick(v), causal, window)
+    elif not cross:
+        out = _self_attn(q, pick(k), pick(v), causal, window)
     else:
-        out = full_attention(q, k, v, causal=False)
-    out = out.reshape(*x.shape[:-1], cfg.n_heads * hd)
-    return linear(out, p["wo"]), new_cache
+        out = full_attention(q, pick(k), pick(v), causal=False)
+    return out, new_cache
 
 
 def _self_attn(q, k, v, causal, window):
@@ -431,10 +466,184 @@ def dense_block(p, x, cfg: LMConfig, positions, *, kv_cache=None,
     return x, new_cache
 
 
+# ---------------------------------------------------------------------------
+# the dense blocks partitioned over a mesh (explicit SPMD): what GSPMD makes
+# of the JAX model's `shard` annotations, written out
+# ---------------------------------------------------------------------------
+
+
+class Spmd:
+    """One partitioned program on `mesh` (see `dist/sharding.py`): every
+    per-device value is a list, one block an executed device, in mesh
+    order; `map` runs a function on each device's blocks.
+
+    Tensor parallelism over 'model' (Megatron's layout, the one GSPMD
+    derives from the reference's annotations): `wq`, `wk`, `wv`, `wi` and
+    `wg` split their output columns, `wo` its input rows, followed by a
+    psum; a replicated input enters the split work through `enter`, whose
+    backward sums the devices' partial cotangents. FSDP: weights split on
+    'embed' over 'data' are all-gathered before use (`local`), their
+    gradients reduce-scattered by the gather's backward. The batch rows
+    split over the data axes ('pod', 'data')."""
+
+    def __init__(self, mesh):
+        from repro_torch.dist import sharding as S
+
+        self.S, self.mesh = S, mesh
+        sizes = dict(mesh.shape)
+        self.tp = int(sizes.get("model", 1))
+        self.n = len(mesh.executed)
+        self.rank = [int(mesh.coords(i).get("model", 0))
+                     for i in mesh.executed]
+        self.data_axes = tuple(a for a in ("pod", "data") if a in sizes)
+
+    def map(self, fn, *args) -> list:
+        """`fn` on each device's blocks: list arguments are per device,
+        any other argument is every device's."""
+        return [fn(*(a[k] if isinstance(a, list) else a for a in args))
+                for k in range(self.n)]
+
+    def enter_model(self, xs) -> list:
+        return self.S.enter(xs, self.mesh, ("model",))
+
+    def psum_model(self, xs) -> list:
+        return self.S.psum(xs, self.mesh, ("model",))
+
+    def column_in(self, hs) -> list:
+        """A replicated input entering column-parallel products (`linear`
+        on each device's columns): its cotangent sums the devices'
+        partial ones."""
+        return list(hs) if self.tp == 1 else self.enter_model(hs)
+
+    def row(self, xs, ps) -> list:
+        """A row-parallel product summed over 'model' in xs' type, as
+        GSPMD sums the partial products of the reference's layout."""
+        part = self.map(linear, xs, ps)
+        return part if self.tp == 1 else self.psum_model(part)
+
+    def local(self, tree) -> list:
+        """A tree of placed values -> one tree of blocks a device, every
+        block split over 'data' (FSDP) all-gathered first."""
+        S = self.S
+
+        def one(x):
+            if not isinstance(x, S.Sharded):
+                return [x] * self.n
+            parts = list(x.parts)
+            for d, e in enumerate(x.sharding.spec):
+                if e is not None and "data" in S._names(e):
+                    if e != "data":
+                        raise NotImplementedError(
+                            f"a weight split over {e!r}: FSDP splits "
+                            f"weights over 'data' alone")
+                    parts = S.all_gather(parts, self.mesh, "data", d)
+            return parts
+
+        def build(t, k):
+            if isinstance(t, dict):
+                return {key: build(v, k) for key, v in t.items()}
+            return t[k]
+
+        def walk(t):
+            if isinstance(t, dict):
+                return {key: walk(v) for key, v in t.items()}
+            return one(t)
+
+        gathered = walk(tree)
+        return [build(gathered, k) for k in range(self.n)]
+
+
+def check_tp(cfg: LMConfig, tp: int) -> None:
+    """The widths tensor parallelism over `tp` devices splits evenly (the
+    placements split them, `_fit_spec_to_shape`); the port partitions
+    nothing else."""
+    hd = cfg.head_dim
+    bad = [f"{name} {n}" for name, n in (
+        ("n_heads", cfg.n_heads), ("n_kv_heads x head_dim",
+                                   cfg.n_kv_heads * hd),
+        ("d_ff", cfg.d_ff)) if n % tp]
+    if bad:
+        raise NotImplementedError(
+            f"tensor parallelism over {tp} devices needs {', '.join(bad)} "
+            f"to divide by {tp}")
+
+
+def _kv_group(cfg: LMConfig, tp: int, rank: int) -> slice:
+    """The KV heads that the q heads of device `rank` attend with, where
+    every device holds every KV head (n_kv_heads does not divide tp): a
+    contiguous run, each serving the same number of local q heads."""
+    nq = cfg.n_heads // tp
+    rep = cfg.n_heads // cfg.n_kv_heads
+    q0 = rank * nq
+    kv = [(q0 + i) // rep for i in range(nq)]
+    first, n = kv[0], kv[-1] - kv[0] + 1
+    if nq % n or any(kv[i] - first != i // (nq // n) for i in range(nq)):
+        raise NotImplementedError(
+            f"{nq} q heads a device do not group over {cfg.n_kv_heads} "
+            f"KV heads")
+    return slice(first, first + n)
+
+
+def attention_spmd(sp: Spmd, ps, hs, cfg: LMConfig, positions, *,
+                   kv_caches=None, cache_pos=None):
+    """`attention_block` (causal self-attention) partitioned: `ps` each
+    device's attention weights (local blocks), `hs` its normed hidden
+    [b, S, D], replicated over 'model', `positions` its positions. Each
+    device projects its q heads' columns and its share of the K/V
+    columns; where the KV heads do not divide the 'model' axis the
+    projected K and V are all-gathered (the reference constrains them to
+    replicated heads), so each device holds every KV head and its q heads
+    meet their own group (`_kv_group`). The output projection is
+    row-parallel, its partial sums psummed. Returns each device's output
+    [b, S, D]; `kv_caches` (each device's dict) are written in place."""
+    tp, hd = sp.tp, cfg.head_dim
+    check_tp(cfg, tp)
+    nq, kv_split = cfg.n_heads // tp, cfg.n_kv_heads % tp == 0
+    nkv = cfg.n_kv_heads // tp if kv_split else cfg.n_kv_heads
+    hs = sp.column_in(hs)
+    q, k, v = ([linear(h, p[w]) for h, p in zip(hs, ps)]
+               for w in ("wq", "wk", "wv"))
+    if not kv_split:
+        k = sp.S.all_gather(k, sp.mesh, "model", -1)
+        v = sp.S.all_gather(v, sp.mesh, "model", -1)
+    b, s = hs[0].shape[:2]
+    q = [t.reshape(b, s, nq, hd) for t in q]
+    k = [t.reshape(b, s, nkv, hd) for t in k]
+    v = [t.reshape(b, s, nkv, hd) for t in v]
+    if cfg.qk_norm:  # replicated scales on split heads: partial gradients
+        qn = sp.enter_model([p["qnorm"]["scale"].to(F32) for p in ps])
+        kn = sp.enter_model([p["knorm"]["scale"].to(F32) for p in ps])
+        q = sp.map(lambda t, w: rms_norm(t, {"scale": w}, cfg.norm_eps),
+                   q, qn)
+        k = sp.map(lambda t, w: rms_norm(t, {"scale": w}, cfg.norm_eps),
+                   k, kn)
+    q = sp.map(lambda t, pos: rope(t, pos, cfg.rope_theta), q, positions)
+    kpos = positions if cache_pos is None else [
+        cache_pos + torch.arange(s, device=t.device) for t in k]
+    k = sp.map(lambda t, pos: rope(t, pos, cfg.rope_theta), k, kpos)
+    groups = [None if kv_split else _kv_group(cfg, tp, r) for r in sp.rank]
+    caches = kv_caches or [None] * sp.n
+    att = sp.map(lambda q_, k_, v_, c, g: attend(
+        q_, k_, v_, causal=True, kv_cache=c, cache_pos=cache_pos,
+        kv_heads=g), q, k, v, caches, groups)
+    return sp.row([o[0].reshape(b, s, nq * hd) for o in att],
+                  [p["wo"] for p in ps])
+
+
+def mlp_spmd(sp: Spmd, ps, hs):
+    """`mlp` partitioned: `wi` and `wg` column-parallel on a replicated
+    input, `wo` row-parallel, its partial sums psummed."""
+    hs = sp.column_in(hs)
+    h = [silu(linear(x, p["wg"])) * linear(x, p["wi"])
+         for x, p in zip(hs, ps)]
+    return sp.row(h, [p["wo"] for p in ps])
+
+
 __all__ = [
     "init_linear", "linear", "init_norm", "rms_norm", "rope",
     "init_attention", "attention_block", "full_attention", "pos_attention",
     "blockwise_attention", "init_mlp", "mlp", "init_dense_block",
     "dense_block", "dt", "kv_quant", "kv_dequant", "sigmoid", "silu",
-    "softplus", "gelu",
+    "softplus", "gelu", "attend", "MetaGenerator", "Spmd", "check_tp",
+    "attention_spmd", "mlp_spmd",
 ]

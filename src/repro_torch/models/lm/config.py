@@ -3,6 +3,8 @@
 Counterpart of `repro/models/lm/config.py`: `LMConfig` is a field-for-field
 copy (a plain dataclass), so the port reads the same widths as the JAX
 package. Per-architecture values live in `repro_torch/configs/<id>.py`.
+`ShapeSpec` and `SHAPES` are the dry-run's four input-shape cells
+(`launch/dryrun.py`), the reference's values.
 """
 from __future__ import annotations
 
@@ -145,4 +147,22 @@ class LMConfig:
         return n + self.n_layers * per
 
 
-__all__ = ["LMConfig"]
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One assigned input-shape cell."""
+
+    name: str  # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    mode: str  # train | prefill | decode
+
+
+SHAPES = (
+    ShapeSpec("train_4k", 4096, 256, "train"),
+    ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    ShapeSpec("decode_32k", 32768, 128, "decode"),
+    ShapeSpec("long_500k", 524288, 1, "decode"),
+)
+
+
+__all__ = ["LMConfig", "ShapeSpec", "SHAPES"]

@@ -18,7 +18,10 @@ of logical axis names; stacked layer params get a leading `None`.
 
 Entry points that make tensors (`init_params`, `init_cache`) run on CUDA
 unless the caller names a device; the forward functions and `loss_fn` run
-where their inputs lie.
+where their inputs lie. On parameters placed on a mesh of several
+devices, the dense family's `loss_fn`, `forward_train`, `prefill` and
+`decode_step` run partitioned (tensor parallelism, FSDP, data
+parallelism: the last section).
 """
 from __future__ import annotations
 
@@ -228,9 +231,12 @@ def init_params(cfg: LMConfig, seed: int = 0,
                 device=None) -> Tuple[Dict, Dict]:
     """(params, logical) of `cfg`, drawn on `device` (CUDA unless named)
     from a generator seeded with `seed`. The same shapes, types and
-    distributions as the JAX model's `init_params`, not its draws."""
+    distributions as the JAX model's `init_params`, not its draws. On
+    `device="meta"` the tensors have shapes and types alone (the
+    reference's `jax.eval_shape` of its init)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    gen = (C.MetaGenerator() if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(int(seed)))
     p: Dict[str, Any] = {}
     lg: Dict[str, Any] = {}
     vp = padded_vocab(cfg)
@@ -370,7 +376,12 @@ def logits_from_hidden(params, cfg: LMConfig, x):
 
 def forward_train(params, cfg: LMConfig, tokens, embeds=None,
                   enc_inputs=None):
-    """Causal LM (or enc-dec) forward. Returns (logits [B, S, V], aux)."""
+    """Causal LM (or enc-dec) forward. Returns (logits [B, S, V], aux).
+    On placed parameters (a mesh of several devices) the dense family runs
+    partitioned and the logits come back placed (`_forward_spmd`)."""
+    sp = _spmd_of(params, cfg)
+    if sp is not None:
+        return _forward_spmd(sp, params, cfg, tokens)
     if cfg.family in ("encdec", "audio"):
         return _encdec_forward(params, cfg, tokens, enc_inputs)
     x = embed_tokens(params, cfg, tokens, embeds)
@@ -416,7 +427,13 @@ def loss_fn(params, cfg: LMConfig, batch):
     The JAX loss contracts the log-probabilities with a one-hot of the
     targets (to keep its vocab axis sharded); a gather of the target's
     log-probability is the same number, since every other term of that
-    sum is an exact zero, and it saves a [B, S, V] float32 tensor."""
+    sum is an exact zero, and it saves a [B, S, V] float32 tensor.
+
+    On placed parameters the dense family's loss runs partitioned
+    (`_loss_spmd`) and comes back as a placed scalar, replicated."""
+    sp = _spmd_of(params, cfg)
+    if sp is not None:
+        return _loss_spmd(sp, params, cfg, batch["tokens"])
     tokens = batch["tokens"]
     logits, aux = forward_train(
         params, cfg, tokens,
@@ -509,7 +526,11 @@ def cache_logical(cfg: LMConfig):
 
 def prefill(params, cfg: LMConfig, tokens, max_len: int, embeds=None,
             enc_inputs=None):
-    """Run the prompt, fill caches. Returns (last_logits, cache)."""
+    """Run the prompt, fill caches. Returns (last_logits, cache). On placed
+    parameters (dense family) both come back placed (`_prefill_spmd`)."""
+    sp = _spmd_of(params, cfg)
+    if sp is not None:
+        return _prefill_spmd(sp, params, cfg, tokens, max_len)
     if cfg.family in ("encdec", "audio"):
         return _encdec_prefill(params, cfg, tokens, max_len, enc_inputs)
     caches = init_cache(cfg, tokens.shape[0], max_len, device=tokens.device)
@@ -520,8 +541,13 @@ def prefill(params, cfg: LMConfig, tokens, max_len: int, embeds=None,
 
 
 def decode_step(params, cfg: LMConfig, token, caches, pos: int):
-    """token: [B, 1] integer; pos: the current absolute position."""
+    """token: [B, 1] integer; pos: the current absolute position. On placed
+    parameters (dense family) the token, the caches and the logits are
+    placed (`_decode_spmd`)."""
     pos = int(pos)
+    sp = _spmd_of(params, cfg)
+    if sp is not None:
+        return _decode_spmd(sp, params, cfg, token, caches, pos)
     if cfg.family in ("encdec", "audio"):
         return _encdec_decode(params, cfg, token, caches, pos)
     x = embed_tokens(params, cfg, token)
@@ -575,8 +601,291 @@ def _encdec_decode(params, cfg, token, caches, pos: int):
     return logits_from_hidden(params, cfg, x), caches
 
 
+# ---------------------------------------------------------------------------
+# the dense family partitioned over a mesh (explicit SPMD)
+# ---------------------------------------------------------------------------
+#
+# Placed parameters (`dist.sharding.place` of `tree_shardings(logical,
+# mesh, fsdp=)`: `Sharded` leaves, a mesh of several devices) run the
+# partitioned program: every device runs the same ops on its own blocks in
+# mesh order, joined by the collectives of `dist/sharding.py`. The layout
+# is the one GSPMD makes of the reference's annotations: the batch rows
+# over ('pod', 'data'); attention and MLP as in `common.Spmd`; the vocab
+# over 'model' for the embedding lookup (each device looks up the tokens
+# its rows hold, zeros elsewhere, psummed), the head and the loss, whose
+# log-softmax takes the max and the sum of exponentials over 'model'
+# (`model.py:287-305`, `:356-364` of the reference); KV caches split by
+# batch and, where they divide, KV heads (`cache_shardings`).
+#
+# Only the dense family is partitioned: the others wait for ROADMAP queue
+# 1 item 13.7 and refuse a mesh of several devices.
+
+ROADMAP_NEXT = ("ROADMAP queue 1 item 13.7 (tensor parallelism, FSDP and "
+                "data parallelism for the moe, ssm, hybrid, vlm and audio "
+                "families)")
+
+
+def _first_leaf(tree):
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree
+
+
+def _spmd_of(params, cfg: LMConfig):
+    """The partitioned program's context where `params` are placed on a
+    mesh of several devices; None on the device path."""
+    from repro_torch.dist.sharding import Sharded
+
+    leaf = _first_leaf(params)
+    if not isinstance(leaf, Sharded):
+        return None
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}) on mesh {dict(leaf.mesh.shape)}: "
+            f"the port partitions the dense family only; the others wait "
+            f"for {ROADMAP_NEXT}")
+    return C.Spmd(leaf.mesh)
+
+
+def _row_parts(sp, x, name: str) -> list:
+    """The blocks of a batch input, whose rows must split over every data
+    axis of more than one device and nothing else."""
+    from repro_torch.dist.sharding import Sharded, spec_axes
+
+    if not isinstance(x, Sharded) or x.mesh != sp.mesh:
+        raise ValueError(f"{name}: place it on the parameters' mesh "
+                         f"(dryrun.batch_shardings)")
+    sizes = dict(sp.mesh.shape)
+    want = {a for a in sp.data_axes if sizes[a] > 1}
+    spec = x.sharding.spec
+    first = set(spec_axes(spec[:1]))
+    if {a for a in first if sizes[a] > 1} != want \
+            or spec_axes(spec[1:]):
+        raise ValueError(f"{name}: rows must split over {sorted(want)}, "
+                         f"not {spec!r}")
+    return list(x.parts)
+
+
+def _placed(sp, parts, axes, shape):
+    """Per-device blocks as a placed value of global `shape`, laid out by
+    the logical `axes`."""
+    from repro_torch.dist import sharding as S
+
+    spec = S._fit_spec_to_shape(S.logical_to_spec(axes, sp.mesh),
+                                tuple(shape), sp.mesh)
+    return S.Sharded(parts, S.NamedSharding(sp.mesh, spec))
+
+
+def _layer_slice(tree, j: int):
+    """Layer `j` of stacked placed parameters (the leading axis is never
+    split)."""
+    from repro_torch.dist import sharding as S
+
+    if isinstance(tree, dict):
+        return {k: _layer_slice(v, j) for k, v in tree.items()}
+    return S.Sharded([t[j] for t in tree.parts],
+                     S.NamedSharding(tree.mesh, S.P(*tree.sharding.spec[1:])))
+
+
+def _embed_spmd(sp, params, cfg: LMConfig, toks) -> list:
+    """Vocab-parallel lookup: each device its own rows of the table."""
+    tables = [p["embed"] for p in sp.local({"embed": params["embed"]})]
+    vloc = tables[0].shape[0]
+
+    def one(table, tok, rank):
+        idx = tok.long() - rank * vloc
+        ok = (idx >= 0) & (idx < vloc)
+        rows = table[idx.clamp(0, vloc - 1)]
+        zero = torch.zeros((), dtype=rows.dtype, device=rows.device)
+        return torch.where(ok[..., None], rows, zero).to(C.dt(cfg))
+
+    return sp.psum_model(sp.map(one, tables, toks, sp.rank))
+
+
+def _logits_spmd(sp, params, cfg: LMConfig, xs) -> list:
+    """Each device's vocab block of the logits, pad columns masked."""
+    keys = ("ln_f", "embed" if cfg.tie_embeddings else "lm_head")
+    top = sp.local({k: params[k] for k in keys})
+    hs = sp.map(lambda x, p: C.rms_norm(x, p["ln_f"], cfg.norm_eps), xs,
+                top)
+    hs = sp.column_in(hs)
+
+    def one(h, p, rank):
+        if cfg.tie_embeddings:
+            logits = h @ p["embed"].to(h.dtype).T
+        else:
+            logits = C.linear(h, p["lm_head"])
+        vloc = logits.shape[-1]
+        if padded_vocab(cfg) != cfg.vocab:
+            col = rank * vloc + torch.arange(vloc, device=h.device)
+            logits = torch.where(col < cfg.vocab, logits, torch.full(
+                (), C.NEG, dtype=logits.dtype, device=h.device))
+        return logits
+
+    return sp.map(one, hs, top, sp.rank)
+
+
+def _stack_spmd(sp, params, xs, cfg: LMConfig, positions, *, caches=None,
+                cache_pos=None) -> list:
+    """The dense layers partitioned (each under `_remat` when training);
+    caches (placed, stacked) written in place."""
+    def layer(layer_p, xs, layer_c):
+        ps = sp.local(layer_p)
+        hs = sp.map(lambda x, p: C.rms_norm(x, p["ln1"], cfg.norm_eps), xs,
+                    ps)
+        out = C.attention_spmd(sp, [p["mix"] for p in ps], hs, cfg,
+                               positions, kv_caches=layer_c,
+                               cache_pos=cache_pos)
+        xs = sp.map(torch.add, xs, out)
+        hf = sp.map(lambda x, p: C.rms_norm(x, p["ln2"], cfg.norm_eps), xs,
+                    ps)
+        return sp.map(torch.add, xs,
+                      C.mlp_spmd(sp, [p["ffn"] for p in ps], hf))
+
+    train = _remat(lambda lp, xs: layer(lp, xs, None), cfg)
+    for j in range(cfg.n_layers):
+        layer_p = _layer_slice(params["layers"], j)
+        if caches is None:
+            xs = train(layer_p, xs)
+        else:
+            xs = layer(layer_p, xs, [
+                tree_map(lambda c, k=k: c.parts[k][j], caches["layers"])
+                for k in range(sp.n)])
+    return xs
+
+
+def _train_logits(sp, params, cfg: LMConfig, toks) -> list:
+    """Each device's vocab block of the training forward's logits."""
+    xs = _embed_spmd(sp, params, cfg, toks)
+    positions = [torch.arange(x.shape[1], device=x.device) for x in xs]
+    return _logits_spmd(sp, params, cfg,
+                        _stack_spmd(sp, params, xs, cfg, positions))
+
+
+def _forward_spmd(sp, params, cfg: LMConfig, tokens):
+    logits = _train_logits(sp, params, cfg,
+                           _row_parts(sp, tokens, "tokens"))
+    b, s = tokens.shape
+    return (_placed(sp, logits, ("batch", None, "vocab"),
+                    (b, s, padded_vocab(cfg))),
+            torch.zeros((), dtype=F32, device=logits[0].device))
+
+
+def _loss_spmd(sp, params, cfg: LMConfig, tokens):
+    """The next-token cross-entropy over the vocab blocks: the max and the
+    sum of exponentials psummed over 'model', the target's logit taken
+    where it lies; each device's row sum psummed over the data axes."""
+    from repro_torch.dist import sharding as S
+
+    toks = _row_parts(sp, tokens, "tokens")
+    lf = [lg[:, :-1].to(F32) for lg in _train_logits(sp, params, cfg, toks)]
+    top = S.pmax([t.amax(dim=-1, keepdim=True) for t in lf], sp.mesh,
+                 ("model",))
+    shifted = sp.map(torch.sub, lf, top)
+    sumexp = sp.psum_model([torch.exp(t).sum(dim=-1) for t in shifted])
+    vloc = lf[0].shape[-1]
+
+    def target(t, tok, rank):
+        idx = tok[:, 1:].long() - rank * vloc
+        ok = (idx >= 0) & (idx < vloc)
+        got = torch.gather(t, -1, idx.clamp(0, vloc - 1)[..., None])[..., 0]
+        return torch.where(ok, got, torch.zeros((), dtype=F32,
+                                                device=t.device))
+
+    picked = sp.psum_model(sp.map(target, shifted, toks, sp.rank))
+    n = tokens.shape[0] * (tokens.shape[1] - 1)
+    local = sp.map(lambda t, e: -(t - torch.log(e)).sum() / n, picked,
+                   sumexp)
+    loss = S.psum(local, sp.mesh, sp.data_axes)
+    return S.Sharded(loss, S.replicated(sp.mesh))
+
+
+def cache_shardings(caches, mesh):
+    """Placements of a cache tree (shape-fitted), keyed by leaf name as
+    the reference's dry-run keys them (`dryrun.cache_shardings`): K/V split
+    by batch and KV heads, their int8 scales the same, SSD states by batch
+    and heads, conv states by batch and channels, RG-LRU states by batch
+    and width, ring positions replicated."""
+    from repro_torch.dist import sharding as S
+
+    def mk(axes, leaf):
+        spec = S._fit_spec_to_shape(S.logical_to_spec(axes, mesh),
+                                    tuple(leaf.shape), mesh)
+        return S.NamedSharding(mesh, spec)
+
+    def one(key, leaf):
+        nd = leaf.ndim
+        if key in ("k", "v"):  # [(L,)? B, S, KV, hd]
+            axes = ("batch", None, "heads", None)
+        elif key in ("k_scale", "v_scale"):
+            axes = ("batch", None, "heads")
+        elif key == "ssd":
+            axes = ("batch", "heads", None, None)
+        elif key == "conv":
+            axes = ("batch", None, "ffn")
+        elif key == "h":
+            axes = ("batch", "ffn")
+        else:  # "pos" and anything else: replicated
+            return mk((None,) * nd, leaf)
+        return mk((None,) * (nd - len(axes)) + axes, leaf)
+
+    def walk(t, key):
+        if isinstance(t, dict):
+            return {k: walk(v, k) for k, v in t.items()}
+        return None if t is None else one(key, t)
+
+    return walk(caches, None)
+
+
+def _init_cache_spmd(sp, cfg: LMConfig, batch: int, max_len: int):
+    """Empty placed caches: each device's zero blocks (ring positions -1),
+    laid out by `cache_shardings`."""
+    from repro_torch.dist import sharding as S
+
+    shapes = init_cache(cfg, batch, max_len, device="meta")
+    shardings = cache_shardings(shapes, sp.mesh)
+    devs = sp.mesh.device_list
+
+    def one(leaf, sh, key):
+        fill = -1 if key == "pos" else 0
+        return S.Sharded([torch.full(
+            [s.stop - s.start for s in S._slices(sh, i, leaf.shape)], fill,
+            dtype=leaf.dtype, device=devs[i]) for i in sp.mesh.executed],
+            sh)
+
+    def walk(t, sh, key):
+        if isinstance(t, dict):
+            return {k: walk(v, sh[k], k) for k, v in t.items()}
+        return one(t, sh, key)
+
+    return walk(shapes, shardings, None)
+
+
+def _prefill_spmd(sp, params, cfg: LMConfig, tokens, max_len: int):
+    toks = _row_parts(sp, tokens, "tokens")
+    caches = _init_cache_spmd(sp, cfg, tokens.shape[0], max_len)
+    xs = _embed_spmd(sp, params, cfg, toks)
+    positions = [torch.arange(x.shape[1], device=x.device) for x in xs]
+    xs = _stack_spmd(sp, params, xs, cfg, positions, caches=caches)
+    logits = _logits_spmd(sp, params, cfg, [x[:, -1:] for x in xs])
+    return (_placed(sp, logits, ("batch", None, "vocab"),
+                    (tokens.shape[0], 1, padded_vocab(cfg))), caches)
+
+
+def _decode_spmd(sp, params, cfg: LMConfig, token, caches, pos: int):
+    toks = _row_parts(sp, token, "token")
+    xs = _embed_spmd(sp, params, cfg, toks)
+    positions = [pos + torch.arange(1, device=x.device) for x in xs]
+    xs = _stack_spmd(sp, params, xs, cfg, positions, caches=caches,
+                     cache_pos=pos)
+    logits = _logits_spmd(sp, params, cfg, xs)
+    return (_placed(sp, logits, ("batch", None, "vocab"),
+                    (token.shape[0], 1, padded_vocab(cfg))), caches)
+
+
 __all__ = [
     "init_params", "forward_train", "loss_fn", "init_cache", "prefill",
     "decode_step", "layer_kinds", "cache_logical", "padded_vocab",
-    "embed_tokens", "logits_from_hidden", "tree_map",
+    "embed_tokens", "logits_from_hidden", "tree_map", "cache_shardings",
+    "ROADMAP_NEXT",
 ]

@@ -31,7 +31,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.dist.sharding import place
+from repro_torch.dist.sharding import Sharded, place
 from repro_torch.train import tree as T
 
 # torch dtype -> (manifest tag, integer dtype of the same width)
@@ -44,7 +44,10 @@ _BITCAST_BACK = {tag: (dt, ti) for dt, (tag, ti, _) in _BITCAST.items()}
 
 
 def _encode(x) -> tuple:
-    """(numpy array, dtype tag) of a leaf, on the host."""
+    """(numpy array, dtype tag) of a leaf, on the host (a placed leaf
+    whole)."""
+    if isinstance(x, Sharded):
+        x = x.gather("cpu")
     if isinstance(x, torch.Tensor):
         x = x.detach()
         if x.dtype in _BITCAST:
@@ -137,7 +140,9 @@ def restore(ckpt_dir: str, target_tree: Any, *, step: Optional[int] = None,
     `batch_sharding`, or None for a leaf placed as without it) each leaf
     is placed as its sharding says instead (`dist.sharding.place`: one
     tensor a device where it is replicated, the rows split over 'data';
-    the tensor itself on a mesh of one device). Returns (tree, step)."""
+    the tensor itself on a mesh of one device); a placed leaf of the
+    target (`Sharded`) with no sharding given is placed as it is. Returns
+    (tree, step)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -156,6 +161,8 @@ def restore(ckpt_dir: str, target_tree: Any, *, step: Optional[int] = None,
                     if shardings is not None else [None] * len(leaves))
     out = []
     for a, tag, like, sh in zip(arrays, tags, leaves, shard_leaves):
+        if sh is None and isinstance(like, Sharded):
+            sh = like.sharding
         if sh is not None:
             out.append(place(_decode(a, tag, "cpu"), sh))
             continue

@@ -10,6 +10,15 @@ are held.
 Functional: `apply_updates` returns new tensors and leaves its inputs as
 they are. Every division divides by a tensor (see `core/quant.true_div`).
 
+On placed parameters (`dist.sharding.Sharded` leaves, the partitioned
+trainer's) AdamW runs on each device's block: the moments take the
+parameter's placement, the global gradient norm sums each leaf's squares
+over the axes it is split on, and the 8-bit state's per-row statistics
+(m's absolute max, v's log range) are reduced over the axes that split a
+row, so each block is quantized as the whole row is. Its per-row scale
+keeps the parameter's first-axis split alone (the reference dry-run's
+`_opt_state_shardings`).
+
 The 8-bit v state takes a logarithm to quantize and an exponential to
 dequantize. The reference's are XLA's float32 `log` and `exp` on the CPU,
 Cephes polynomials with fused multiply-adds, which differ from torch's in
@@ -27,6 +36,7 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from repro_torch.core.quant import true_div
+from repro_torch.dist import sharding as S
 from repro_torch.train import tree as T
 
 F32 = torch.float32
@@ -157,9 +167,14 @@ def _exp_f32(x: torch.Tensor) -> torch.Tensor:
     return z * pow2
 
 
-def _quantize_state_leaf(x):
-    """First moment m: linear symmetric int8 with a per-row scale."""
-    amax = torch.amax(x.abs(), dim=_red_dims(x), keepdim=True)
+def _row_amax(x):
+    return torch.amax(x.abs(), dim=_red_dims(x), keepdim=True)
+
+
+def _quantize_state_leaf(x, amax=None):
+    """First moment m: linear symmetric int8 with a per-row scale (`amax`:
+    the rows' absolute max, where x is a block of them)."""
+    amax = _row_amax(x) if amax is None else amax
     scale = torch.maximum(true_div(amax, 127.0), _scalar(1e-12, x))
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return {"q": q, "scale": scale.to(F32)}
@@ -172,13 +187,19 @@ def _dq8(leaf):
 _VLOG_FLOOR = 1e-24
 
 
-def _quantize_v_leaf(v):
+def _log_v(v):
+    return _log_f32(v + _VLOG_FLOOR)
+
+
+def _quantize_v_leaf(v, lo=None, hi=None):
     """Second moment v >= 0: uint8 in log space, per-row asymmetric (linear
-    int8 would flush v's small entries to 0 and blow their updates up)."""
+    int8 would flush v's small entries to 0 and blow their updates up).
+    `lo`, `hi`: the rows' log range, where v is a block of them."""
     red = _red_dims(v)
-    lv = _log_f32(v + _VLOG_FLOOR)
-    lo = torch.amin(lv, dim=red, keepdim=True)
-    hi = torch.amax(lv, dim=red, keepdim=True)
+    lv = _log_v(v)
+    if lo is None:
+        lo = torch.amin(lv, dim=red, keepdim=True)
+        hi = torch.amax(lv, dim=red, keepdim=True)
     scale = torch.maximum(true_div(hi - lo, 255.0), _scalar(1e-8, v))
     q = torch.clamp(torch.round((lv - lo) / scale), 0, 255).to(torch.uint8)
     return {"q": q, "scale": scale.to(F32), "zero": lo.to(F32)}
@@ -194,17 +215,42 @@ def _is_qleaf(x) -> bool:
                                               {"q", "scale", "zero"})
 
 
+def _state_sharding(p_sh, nd: int):
+    """The placement of an 8-bit state's per-row scale: the parameter's
+    first-axis split alone."""
+    spec = p_sh.spec
+    first = spec[0] if len(spec) else None
+    return S.NamedSharding(p_sh.mesh, S.P(first, *([None] * (nd - 1)))
+                           if nd else S.P())
+
+
 def init_state(params, state_bits: Optional[int] = None) -> AdamWState:
     """Zero moments mirroring the tree (a float32 scalar for a frozen
-    leaf); step 0 as int32 on the first leaf's device."""
+    leaf); step 0 as int32 on the first leaf's device. A placed leaf's
+    moments are placed as it is (8-bit: `q` so, its scales by the first
+    axis)."""
     def zero(p, quantizer):
+        if isinstance(p, S.Sharded):
+            if not _trainable(p.parts[0]):
+                return S.leafwise(lambda t: torch.zeros(
+                    (), dtype=F32, device=t.device), p)
+            if state_bits != 8:
+                return S.leafwise(lambda t: torch.zeros_like(t, dtype=F32),
+                                  p)
+            blocks = [quantizer(torch.zeros(t.shape, dtype=F32,
+                                            device=t.device))
+                      for t in p.parts]
+            return {key: S.Sharded(
+                [b[key] for b in blocks],
+                p.sharding if key == "q" else _state_sharding(
+                    p.sharding, blocks[0][key].ndim)) for key in blocks[0]}
         if not _trainable(p):
             return torch.zeros((), dtype=F32, device=p.device)
         if state_bits == 8:
             return quantizer(torch.zeros(p.shape, dtype=F32, device=p.device))
         return torch.zeros_like(p, dtype=F32)
 
-    first = T.leaves(params)[0]
+    first = S.parts_of(T.leaves(params)[0])[0]
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32, device=first.device),
         m=T.tree_map(lambda p: zero(p, _quantize_state_leaf), params),
@@ -213,44 +259,112 @@ def init_state(params, state_bits: Optional[int] = None) -> AdamWState:
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of every leaf's sum of squares, leaves in tree
-    order."""
+    order (on placed leaves, each device's copy: `_sharded_norm`)."""
+    flat = T.leaves(tree)
+    if isinstance(flat[0], S.Sharded):
+        return _sharded_norm(flat)
     total = 0
-    for x in T.leaves(tree):
+    for x in flat:
         total = total + torch.sum(torch.square(x.to(F32)))
     return torch.sqrt(total)
+
+
+def _sharded_norm(flat) -> "S.Sharded":
+    """The global norm of placed leaves, replicated: each leaf's block sums
+    psummed over the axes it is split on, added in leaf order."""
+    mesh = flat[0].mesh
+    total = [0] * len(flat[0].parts)
+    for x in flat:
+        sq = S.psum([torch.sum(torch.square(t.to(F32))) for t in x.parts],
+                    mesh, S.spec_axes(x.sharding.spec))
+        total = [a + b for a, b in zip(total, sq)]
+    return S.Sharded([torch.sqrt(t) for t in total], S.replicated(mesh))
+
+
+def _adam(p, g, m, v, scale, lr, b1c, b2c, cfg: AdamWConfig):
+    """The AdamW update of one block: (new p, new m, new v), moments in
+    float32."""
+    g = g.to(F32) * scale
+    m = cfg.b1 * m + (1 - cfg.b1) * g
+    v = cfg.b2 * v + (1 - cfg.b2) * torch.square(g)
+    mh = m / b1c
+    vh = v / b2c
+    delta = mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * p.to(F32)
+    return (p.to(F32) - lr * delta).to(p.dtype), m, v
+
+
+def _sharded_update(p, g, m, v, consts, cfg: AdamWConfig):
+    """`_adam` on every device's block of a placed leaf; 8-bit state
+    requantized with its row statistics reduced over the axes that split
+    a row."""
+    if not _trainable(p.parts[0]):
+        return p, m, v
+    quant = _is_qleaf(m)
+    outs = []
+    for k, (pk, gk) in enumerate(zip(p.parts, g.parts)):
+        mk = _dq8({key: m[key].parts[k] for key in m}) if quant \
+            else m.parts[k]
+        vk = _dq8_v({key: v[key].parts[k] for key in v}) if quant \
+            else v.parts[k]
+        outs.append(_adam(pk, gk, mk, vk, *consts[k], cfg))
+    new_p = S.Sharded([o[0] for o in outs], p.sharding)
+    if not quant:
+        return (new_p, S.Sharded([o[1] for o in outs], p.sharding),
+                S.Sharded([o[2] for o in outs], p.sharding))
+    mesh, row = p.mesh, S.spec_axes(p.sharding.spec[1:])
+    amax = S.pmax([_row_amax(o[1]) for o in outs], mesh, row)
+    lvs = [_log_v(o[2]) for o in outs]
+    red = _red_dims(lvs[0])
+    hi = S.pmax([torch.amax(t, dim=red, keepdim=True) for t in lvs], mesh,
+                row)
+    lo = [-t for t in S.pmax([-torch.amin(t, dim=red, keepdim=True)
+                              for t in lvs], mesh, row)]
+    m8 = [_quantize_state_leaf(o[1], a) for o, a in zip(outs, amax)]
+    v8 = [_quantize_v_leaf(o[2], a, b) for o, a, b in zip(outs, lo, hi)]
+
+    def placed(blocks, like):
+        return {key: S.Sharded([b[key] for b in blocks],
+                               like[key].sharding) for key in blocks[0]}
+
+    return new_p, placed(m8, m), placed(v8, v)
 
 
 def apply_updates(params, grads, state: AdamWState, cfg: AdamWConfig):
     """One AdamW step. Returns (new_params, new_state, metrics)."""
     step = state.step + 1
     gnorm = global_norm(grads)
-    if cfg.grad_clip:
-        scale = torch.minimum(
-            _scalar(1.0, gnorm),
-            _scalar(cfg.grad_clip, gnorm)
-            / torch.maximum(gnorm, _scalar(1e-9, gnorm)))
-    else:
-        scale = 1.0
-    lr = lr_at(cfg, step)
-    stepf = step.to(F32)
-    b1c = 1 - torch.pow(_scalar(cfg.b1, stepf), stepf)
-    b2c = 1 - torch.pow(_scalar(cfg.b2, stepf), stepf)
+    norms = S.parts_of(gnorm)
+
+    def clip(norm):
+        if not cfg.grad_clip:
+            return 1.0
+        return torch.minimum(
+            _scalar(1.0, norm), _scalar(cfg.grad_clip, norm)
+            / torch.maximum(norm, _scalar(1e-9, norm)))
+
+    def consts(norm):
+        """(clip scale, lr, bias corrections) on the norm's device."""
+        st = step.to(norm.device)
+        lr = lr_at(cfg, st)
+        stepf = st.to(F32)
+        return (clip(norm), lr, 1 - torch.pow(_scalar(cfg.b1, stepf), stepf),
+                1 - torch.pow(_scalar(cfg.b2, stepf), stepf))
+
+    per_dev = [consts(nm) for nm in norms]
+    scale, lr, b1c, b2c = per_dev[0]
+    if isinstance(gnorm, S.Sharded):
+        gnorm = norms[0]
 
     def upd(p, g, m, v):
+        if isinstance(p, S.Sharded):
+            return _sharded_update(p, g, m, v, per_dev, cfg)
         if not _trainable(p):
             return p, m, v
         quant = _is_qleaf(m)
         if quant:
             m = _dq8(m)
             v = _dq8_v(v)
-        g = g.to(F32) * scale
-        m = cfg.b1 * m + (1 - cfg.b1) * g
-        v = cfg.b2 * v + (1 - cfg.b2) * torch.square(g)
-        mh = m / b1c
-        vh = v / b2c
-        delta = mh / (torch.sqrt(vh) + cfg.eps) \
-            + cfg.weight_decay * p.to(F32)
-        new_p = (p.to(F32) - lr * delta).to(p.dtype)
+        new_p, m, v = _adam(p, g, m, v, scale, lr, b1c, b2c, cfg)
         if quant:
             return new_p, _quantize_state_leaf(m), _quantize_v_leaf(v)
         return new_p, m, v

@@ -248,11 +248,21 @@ def test_use_mesh_axis_size_and_shard():
         x = torch.ones(4, 3)
         assert S.shard(x, "batch", "embed") is x
     assert S.current_mesh() is None
+    # tensor parallelism over 'model' and FSDP over 'data' run for the
+    # dense family; a non-dense family's program refuses them
+    cfg = reduced_config("mamba2-1.3b")
+    params, logical = M.init_params(cfg, 0, device="cpu")
     for bad, fsdp in ((LM.make_mesh((1, 2), ("data", "model"),
                                     devices=cpus(2)), False), (mesh, True)):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            with S.use_mesh(bad, fsdp=fsdp):
-                pass
+        with S.use_mesh(bad, fsdp=fsdp) as m:
+            assert m is bad and S.axis_size("model") == bad.shape["model"]
+            placed = T.tree_map(S.place, params, S.tree_shardings(
+                logical, bad, fsdp, params))
+            tokens = S.place(torch.zeros((2, 8), dtype=torch.long),
+                             S.NamedSharding(bad, S.logical_to_spec(
+                                 ("batch", None), bad)))
+            with pytest.raises(NotImplementedError, match="item 13"):
+                M.loss_fn(placed, cfg, {"tokens": tokens})
     with S.use_mesh(LM.make_mesh((1, 1), ("data", "model"),
                                  devices=cpus(1)), fsdp=True):
         assert S.axis_size("model") == 1

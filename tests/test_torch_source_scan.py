@@ -4,7 +4,8 @@
 energy model's default power curve, the vision trainer, its export and its
 CLI, the LM's init, cache and `Engine`, the LM serving CLI, the LM
 training CLI, the AdamW state's carrier, the data mesh, the host mesh, a
-replicated `VisionEngine` and the compressed all-reduce included)
+replicated `VisionEngine`, the compressed all-reduce and the production
+mesh included)
 called without `device=` (or `backend=`) on a machine without CUDA raises
 instead of running on the CPU."""
 import ast
@@ -71,7 +72,10 @@ def test_port_files_found():
                 "configs/registry.py", "serve/engine.py",
                 "train/grad_compress.py", "train/straggler.py",
                 "launch/train.py", "dist/__init__.py", "dist/sharding.py",
-                "dist/pp.py", "launch/mesh.py"):
+                "dist/pp.py", "launch/mesh.py", "launch/plans.py",
+                "launch/roofline.py", "launch/dryrun.py",
+                "launch/hillclimb.py", "configs/mobilenet_v2.py",
+                "configs/efficientnet_compact.py"):
         assert ROOT / "src" / "repro_torch" / rel in PORT_FILES
 
 
@@ -101,7 +105,8 @@ def test_no_jax_or_reference_import(path):
                                    "opt_state_from_reference",
                                    "data_mesh()", "make_host_mesh()",
                                    "VisionEngine(mesh=)",
-                                   "compressed_psum"])
+                                   "compressed_psum",
+                                   "make_production_mesh()"])
 def test_entry_points_refuse_to_run_without_cuda(entry, monkeypatch):
     path = fixture_paths("mobilenet_v2", 8)[0]
     qnet = Q.load_qnet(path)
@@ -152,6 +157,8 @@ def test_entry_points_refuse_to_run_without_cuda(entry, monkeypatch):
             "VisionEngine(mesh=)":
                 lambda: VisionEngine(qnet, mesh=S.data_mesh(1)),
             "compressed_psum":
-                lambda: GC.compressed_psum([{"g": x}], [{"g": x}])}[entry]
+                lambda: GC.compressed_psum([{"g": x}], [{"g": x}]),
+            "make_production_mesh()":
+                lambda: LMESH.make_production_mesh()}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
