@@ -191,7 +191,7 @@ last line:
      its own batch's gradients and the residual a first all-reduce left:
      every summed and residual value bit for bit its plain version's on
      the CPU, ms beside the bytes bound. Prints the phase's seconds;
-  9b. dryrun: the distributed dense LM on the one card (`dist/sharding.py`
+  9b. dryrun: the distributed LM on the one card (`dist/sharding.py`
      collectives, `models/lm/model.py`'s partitioned program,
      `launch/{dryrun,roofline}.py`). [lm_train]'s step (full-depth bf16
      Llama-3.2-1B, batch 8 x 128, `make_train_step`) traced on the (1, 1)
@@ -213,9 +213,18 @@ last line:
      cost of one card standing for several devices, not scaling. A
      decode step at 4 slots under TP (1, 2): logits within
      LM_BF16_GRAD_L2 (relative L2) of the mesh-less step's, ms of both.
-     The dry-run's llama3.2-1b decode_32k 2x16x16 and train_4k 16x16
-     cells on meta devices must report `ok` (terms, bottleneck, memory,
-     seconds printed). K2-K6 launch counts must be 0;
+     (e) The vlm, audio, ssm and hybrid families (`DRYRUN_FAMILIES`:
+     phi-3-vision 2 layers with 576 image embeds, seamless 2 + 2 layers
+     with 1024 frames, mamba2 2 layers, recurrentgemma 5 layers, each at
+     its published widths, bf16, 8 x 128) gated on the same three meshes
+     as Llama, each against its own bf16 floor measured in the run, and
+     a TP prefill and 4 decode steps (logits within LM_BF16_GRAD_L2);
+     ms, device intervals and collective bytes a mesh; the part's
+     seconds. The dry-run's llama3.2-1b decode_32k 2x16x16 and train_4k
+     16x16 cells, mamba2's long_500k 2x16x16 (a replicated row) and
+     recurrentgemma's train_4k 16x16 (heads split mid-head) on meta
+     devices must report `ok` (terms, bottleneck, memory, seconds
+     printed). K2-K6 launch counts must be 0;
  10. train: the training front end (`repro_torch.train.vision`) on the
      card. MobileNetV2 at the paper's full width (alpha 1.0, 224x224x3,
      1000 classes, w8/a8, BN, batch 32, 2 float + 2 QAT steps, an
@@ -1865,7 +1874,17 @@ DRYRUN_DECODE_REPS = 10  # timed decode steps each side (median)
 DRYRUN_BATCH = (8, 128)  # launch/train.py's defaults, as in [lm_train]
 DRYRUN_DECODE = (4, 16)  # decode slots, prompt length
 DRYRUN_CELLS = (("llama3.2-1b", "decode_32k", True),
-                ("llama3.2-1b", "train_4k", False))
+                ("llama3.2-1b", "train_4k", False),
+                ("mamba2-1.3b", "long_500k", True),  # a row replicated
+                ("recurrentgemma-2b", "train_4k", False))  # heads mid-head
+# (e): the other partitioned families at their published widths, depth cut
+# (recurrentgemma: one (rec, rec, attn) super-block and the (rec, rec)
+# tail, as reduced_config keeps the pattern)
+DRYRUN_FAMILIES = (("phi-3-vision-4.2b", dict(n_layers=2)),
+                   ("seamless-m4t-large-v2",
+                    dict(n_layers=4, n_enc_layers=2, n_dec_layers=2)),
+                   ("mamba2-1.3b", dict(n_layers=2)),
+                   ("recurrentgemma-2b", dict(n_layers=5)))
 # A mesh's bf16 gradients from the float32 gradients of the same weights,
 # at most this many times the mesh-less bf16 gradients' own distance (the
 # bf16 noise floor, measured in the same run): two bf16 steps part by the
@@ -2146,8 +2165,244 @@ def dryrun_decode(card, dev):
     return [] if ok else [f"decode logits {err:.3g}"]
 
 
+def _family_batch(cfg, rows: int, seq: int, seed: int):
+    """Seeded tokens (the data stream's first batch) and the modality
+    stub's inputs, bf16-valued so the bf16 and float32 models read the
+    same numbers."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, lm_batch
+
+    batch = {"tokens": torch.from_numpy(lm_batch(DataConfig(
+        seed=seed, vocab=cfg.vocab, seq_len=seq, global_batch=rows),
+        0)["tokens"]).long()}
+    name = {"vlm": "embeds", "audio": "enc_inputs"}.get(cfg.family)
+    if name:
+        x = np.random.default_rng(seed).standard_normal(
+            (rows, cfg.frontend_len, cfg.d_model)).astype(np.float32)
+        batch[name] = torch.from_numpy(x).to(torch.bfloat16).float()
+    return batch
+
+
+def _placed_family(params, logical, mesh, fsdp, batch):
+    """`params` and `batch` placed on `mesh` as the dry-run places them
+    (tree_shardings; batch_shardings)."""
+    from repro_torch.dist import sharding as S
+    from repro_torch.launch import dryrun as D
+    from repro_torch.train import tree as T
+
+    with S.use_mesh(mesh, fsdp=fsdp):
+        sh = S.tree_shardings(logical, mesh, fsdp=fsdp, shapes=params)
+        rows = D.batch_shardings(batch, mesh)
+        return (T.tree_map(S.place, params, sh),
+                {k: S.place(v, rows[k]) for k, v in batch.items()})
+
+
+def dryrun_family(card, dev, arch, over):
+    """(e) one arch of the vlm, audio, ssm and hybrid families at its
+    published widths, depth cut (`over`), bf16, batch DRYRUN_BATCH: the
+    train step without a mesh, then on TP (1, 2), DP (2, 1) and FSDP
+    (2, 2) meshes that name the card, gated as (a) gates Llama (the bf16
+    floor measured here for this arch at this depth); a TP decode (a
+    prefill and 4 steps) against the mesh-less one. Returns the
+    failures."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.layers import exact_f32
+    from repro_torch.models.lm import model as M
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import parity as PP
+    from repro_torch.train.train_loop import (
+        _psum_data,
+        make_train_step,
+        row_axes,
+        value_and_grad,
+    )
+
+    t_arch = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), **over)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    b, s = DRYRUN_BATCH
+    params, logical = M.init_params(cfg, 0, device=dev)
+    batch = _family_batch(cfg, b, s, 0)
+    names = PP._leaf_names(params)
+    step = make_train_step(cfg, O.AdamWConfig(lr=1e-3, warmup_steps=1,
+                                              total_steps=100))
+
+    def on(bb):
+        return {k: v.to(dev) for k, v in bb.items()}
+
+    def grads_of(c, p, bb):
+        with exact_f32():
+            out = value_and_grad(lambda q, x: M.loss_fn(q, c, x), p, bb)
+        if isinstance(bb["tokens"], torch.Tensor):
+            return out[0], out[2]
+        return out[0], _psum_data(out[2], row_axes(bb))
+
+    def to32(p):
+        return M.tree_map(lambda t: t.to(torch.float32), p)
+
+    loss32, g32 = grads_of(cfg32, to32(params), on(batch))
+    g32 = M.tree_map(lambda t: t.cpu(), g32)
+    torch.cuda.empty_cache()
+    state = O.init_state(params)
+    ms, prof, coll = {}, {}, {"none": {}}
+    ms["none"] = time_ms(lambda: step(params, state, on(batch)),
+                         DRYRUN_REPS, warmup=1)
+    prof["none"] = profile_steps(lambda: step(params, state, on(batch)))
+    del state
+    loss0, g0 = grads_of(cfg, params, on(batch))
+    floor = _leaf_errors(names, g32, g0, dev)
+    print(f"[dryrun] (e) {arch} ({cfg.family}, published widths, "
+          f"{over}, bf16, batch {b} x {s}): the bf16 noise floor, the "
+          f"mesh-less bf16 gradients' worst leaf from the float32 "
+          f"gradients of the same weights, {floor[0]:.3g} ({floor[1]})")
+    bad = []
+    for tag, (shape, fsdp) in DRYRUN_MESHES.items():
+        t0 = time.perf_counter()
+        mesh = make_mesh(shape, ("data", "model"),
+                         devices=[dev] * (shape[0] * shape[1]))
+        pp, pb = _placed_family(params, logical, mesh, fsdp, batch)
+        state = O.init_state(pp)
+        mesh.collectives.reset()
+        out = step(pp, state, pb)
+        torch.cuda.synchronize()
+        coll[tag] = mesh.collectives.snapshot()
+        del out
+        ms[tag] = time_ms(lambda: step(pp, state, pb), DRYRUN_REPS,
+                          warmup=1)
+        prof[tag] = profile_steps(lambda: step(pp, state, pb))
+        del state
+        loss1, g1 = grads_of(cfg, pp, pb)
+        loss_err = abs(float(loss1) - float(loss0)) / abs(float(loss0))
+        apart = _leaf_errors(names, g0, g1, dev)
+        truth = _leaf_errors(names, g32, g1, dev)
+        del pp, pb, g1
+        torch.cuda.empty_cache()
+        pp, pb = _placed_family(to32(params), logical, mesh, fsdp, batch)
+        l32, g = grads_of(cfg32, pp, pb)
+        err32 = abs(float(l32) - float(loss32)) / abs(float(loss32))
+        worst32 = _leaf_errors(names, g32, g, dev)
+        del pp, pb, g
+        torch.cuda.empty_cache()
+        limit = DRYRUN_FLOOR_X * floor[0]
+        apart_bound = PP.LM_BF16_GRAD_L2 if tag == "dp" else None
+        ok = (loss_err <= PP.LM_BF16_LOSS_RTOL and err32 <= PP.LM_LOSS_RTOL
+              and worst32[0] <= PP.LM_GRAD_L2 and truth[0] <= limit
+              and (apart_bound is None or apart[0] <= apart_bound))
+        print(f"[dryrun] (e) {arch} {tag} {dict(mesh.shape)} fsdp={fsdp} "
+              f"on [{dev}] x {mesh.size}: bf16 loss {float(loss1):.6f} "
+              f"against {float(loss0):.6f} without a mesh (rel "
+              f"{loss_err:.3g}, bound {PP.LM_BF16_LOSS_RTOL}); bf16 "
+              f"gradients' worst leaf {truth[0]:.3g} ({truth[1]}) from the "
+              f"float32 gradients (bound {DRYRUN_FLOOR_X} x the floor "
+              f"{floor[0]:.3g} = {limit:.3g}) and {apart[0]:.3g} "
+              f"({apart[1]}) from the mesh-less bf16 step's (bound "
+              f"{apart_bound or 'none: two bf16 steps part by the floor'}); "
+              f"float32 loss rel {err32:.3g} (bound {PP.LM_LOSS_RTOL}), "
+              f"worst float32 gradient leaf {worst32[0]:.3g} ({worst32[1]}; "
+              f"bound {PP.LM_GRAD_L2}); {'ok' if ok else 'FAILED'} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        if not ok:
+            bad.append(f"{arch} {tag}: bf16 loss {loss_err:.3g}, bf16 grads "
+                       f"{truth[0]:.3g} from float32 (limit {limit:.3g}), "
+                       f"{apart[0]:.3g} from the mesh-less step, float32 "
+                       f"loss {err32:.3g}, float32 grads {worst32[0]:.3g} "
+                       f"({worst32[1]})")
+    for tag in ("none", *DRYRUN_MESHES):
+        p = prof[tag]
+        busy = ("not measured" if p is None else
+                f"device busy {p['busy_ms']:.3f} ms, "
+                f"{p['intervals']:.0f} device intervals")
+        c = coll[tag]
+        moved = ", ".join(f"{k} {v}" for k, v in c.items()
+                          if k != "n_ops" and v) or "none"
+        print(f"[dryrun] (e) {card}: {arch} step on {tag}: {ms[tag]:.4f} "
+              f"ms (median of {DRYRUN_REPS}, {ms[tag] / ms['none']:.3f} x "
+              f"without a mesh); {busy}; collective operand bytes a "
+              f"device: {moved} ({c.get('n_ops', 0)} collectives): host "
+              f"cost of one card standing for {tag}'s devices, not "
+              f"scaling")
+    del g0, g32
+    torch.cuda.empty_cache()
+    bad += _family_decode(card, dev, arch, cfg, params, logical)
+    del params
+    torch.cuda.empty_cache()
+    print(f"[dryrun] (e) {arch}: {time.perf_counter() - t_arch:.1f} s")
+    return bad
+
+
+def _family_decode(card, dev, arch, cfg, params, logical):
+    """A prefill and 4 decode steps at DRYRUN_DECODE[0] slots under TP
+    (1, 2) against the mesh-less ones: logits within LM_BF16_GRAD_L2 in
+    relative L2 over the real vocab at every step."""
+    import numpy as np
+    import torch
+
+    from repro_torch.dist import sharding as S
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.lm import model as M
+    from repro_torch.train import parity as PP
+
+    slots, plen = DRYRUN_DECODE
+    batch = _family_batch(cfg, slots, plen, 31)
+    extra = {k: v.to(dev) for k, v in batch.items() if k != "tokens"}
+    rng = np.random.default_rng(31)
+    nxt = torch.from_numpy(rng.integers(0, cfg.vocab, (4, slots, 1)))
+    pos = plen + (cfg.frontend_len if cfg.family == "vlm" else 0)
+    mesh = make_mesh((1, 2), ("data", "model"), devices=[dev, dev])
+    pp, pb = _placed_family(params, logical, mesh, False, batch)
+    v = cfg.vocab
+    errs = []
+    with torch.no_grad():
+        want, cache = M.prefill(params, cfg, batch["tokens"].to(dev),
+                                pos + 4, **extra)
+        got, pcache = M.prefill(pp, cfg, pb["tokens"], pos + 4,
+                                **{k: pb[k] for k in extra})
+        pairs = [(want, got)]
+        for i, tok in enumerate(nxt):
+            want, cache = M.decode_step(params, cfg, tok.to(dev), cache,
+                                        pos + i)
+            got, pcache = M.decode_step(
+                pp, cfg, S.place(tok, pb["tokens"].sharding), pcache,
+                pos + i)
+            pairs.append((want, got))
+        for want, got in pairs:
+            got = got.gather(dev)
+            errs.append(PP._rel_l2(PP._as_tensor(want[..., :v], dev),
+                                   PP._as_tensor(got[..., :v], dev)))
+            if not bool(torch.isfinite(got[..., :v]).all()):
+                errs[-1] = float("inf")
+    ok = max(errs) <= PP.LM_BF16_GRAD_L2
+    print(f"[dryrun] (e) {card}: {arch} prefill of {plen} tokens at "
+          f"{slots} slots and 4 decode steps under TP (1, 2) on [{dev}] x "
+          f"2: logits from the mesh-less ones in relative L2 "
+          f"{', '.join(f'{e:.3g}' for e in errs)} (bound "
+          f"{PP.LM_BF16_GRAD_L2}); {'ok' if ok else 'FAILED'}")
+    del pp, pb, cache, pcache
+    return [] if ok else [f"{arch} decode logits {max(errs):.3g}"]
+
+
+def dryrun_families(card, dev):
+    """(e) the vlm, audio, ssm and hybrid families on the card's meshes
+    (`dryrun_family` each). Returns the failures."""
+    t0 = time.perf_counter()
+    bad = []
+    for arch, over in DRYRUN_FAMILIES:
+        bad += dryrun_family(card, dev, arch, over)
+    print(f"[dryrun] (e) the four families: "
+          f"{time.perf_counter() - t0:.1f} s")
+    return bad
+
+
 def dryrun_cells(card):
-    """(c) JAX's own dry-run test cell and a train cell on meta devices."""
+    """(c) JAX's own dry-run test cell, a train cell, a replicated-row
+    mamba2 cell and a mid-head recurrentgemma cell on meta devices."""
     import tempfile
 
     from repro_torch.launch import dryrun as D
@@ -2195,6 +2450,7 @@ def phase_dryrun(card):
     K.reset_launch_counts()
     bad = dryrun_train(card, dev)
     bad += dryrun_decode(card, dev)
+    bad += dryrun_families(card, dev)
     bad += dryrun_cells(card)
     torch.cuda.synchronize()
     counts = K.launch_counts()

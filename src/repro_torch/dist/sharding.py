@@ -28,24 +28,27 @@ Logical axes (model code names axes 'batch', 'heads', 'ffn', 'vocab',
 
 `shard(x, *axes)` returns `x`: a layout hint that never changes a number.
 The port has no partitioner to read such hints; a program that runs on a
-mesh partitions itself (explicit SPMD, `models/lm/model.py` for the dense
-LMs): each op runs on each device's block in mesh order, and the
-collectives below join those steps.
+mesh partitions itself (explicit SPMD, `models/lm/model.py` for the LMs):
+each op runs on each device's block in mesh order, and the collectives
+below join those steps.
 
-Collectives over mesh axes (`psum`, `enter`, `all_gather`, `pmax`): each
-takes the blocks of every executed device and returns theirs, a sum being
-a left fold in mesh order (XLA's CPU all-reduce order, as
-`compressed_psum`'s). `psum`, `enter` and `all_gather` are autograd
+Collectives over mesh axes (`psum`, `enter`, `all_gather`,
+`reduce_scatter`, `pmax`): each takes the blocks of every executed device
+and returns theirs, a sum being a left fold in mesh order (XLA's CPU
+all-reduce order, as `compressed_psum`'s). All but `pmax` are autograd
 functions with explicit backward passes, so that one backward pass over a
 partitioned program trains every block, as `jax.grad` does through GSPMD:
-all-gather's backward is a reduce-scatter, psum's is the identity and
-`enter`'s (the identity) is a psum. That pairing holds because a value
-replicated over an axis carries one cotangent, which each device holds
-whole (Megatron's f and g): a replicated loss is differentiated on every
-device with a cotangent of 1. Every collective adds its operand bytes (one
-device's) by kind to its mesh's `collectives` counter, backward passes
-included: the port's stand-in for the collective bytes the reference
-reads from its HLO.
+all-gather's backward is a reduce-scatter and reduce-scatter's an
+all-gather, psum's is the identity and `enter`'s (the identity) is a
+psum. That pairing holds because a value replicated over an axis carries
+one cotangent, which each device holds whole (Megatron's f and g): a
+replicated loss is differentiated on every device with a cotangent of 1.
+Where every member of a gather's group goes on to compute the same thing
+(batch rows replicated over 'data' under FSDP), `all_gather(whole=True)`
+keeps each member's own block of its whole cotangent instead. Every
+collective adds its operand bytes (one device's) by kind to its mesh's
+`collectives` counter, backward passes included: the port's stand-in for
+the collective bytes the reference reads from its HLO.
 
 On a mesh of meta devices (the dry-run's 256 and 512 chips) one device's
 program stands for every device's: a meta tensor has a shape and no
@@ -597,6 +600,33 @@ class _Enter(torch.autograd.Function):
                                                           ctx.axes)))
 
 
+def _gather(xs, mesh: Mesh, axis: str, dim: int) -> tuple:
+    """Each group's blocks along `axis` concatenated along `dim` in mesh
+    order, on each member's device."""
+    mesh.collectives.add("all-gather", _nbytes(xs[0]))
+    with _moving():
+        return tuple(torch.cat([xs[j].to(xs[k].device) for j in grp],
+                               dim=dim)
+                     for k, grp in enumerate(_members(mesh, (axis,))))
+
+
+def _positions(mesh: Mesh, axis: str) -> list:
+    """Each executed device's index in its group along `axis`."""
+    if mesh.symmetric:
+        return [0]
+    return [mesh.groups((axis,))[i].index(i) for i in mesh.executed]
+
+
+def _reduce_scatter(xs, mesh: Mesh, axis: str, dim: int, size: int):
+    """Each group's sum along `axis`, each member keeping its own block
+    of `size` along `dim`."""
+    mesh.collectives.add("reduce-scatter", _nbytes(xs[0]))
+    with _moving():
+        total = _psum_parts(xs, _members(mesh, (axis,)))
+        return [t.narrow(dim, p * size, size).contiguous()
+                for t, p in zip(total, _positions(mesh, axis))]
+
+
 class _AllGather(torch.autograd.Function):
     """Forward: each group's blocks concatenated along `dim` in mesh order.
     Backward: a reduce-scatter (the sum of the members' cotangents, each
@@ -604,28 +634,50 @@ class _AllGather(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, mesh, axis, dim, *xs):
-        members = _members(mesh, (axis,))
         ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
         ctx.size = xs[0].shape[dim]
-        mesh.collectives.add("all-gather", _nbytes(xs[0]))
-        with _moving():
-            return tuple(torch.cat([xs[j].to(xs[k].device) for j in grp],
-                                   dim=dim)
-                         for k, grp in enumerate(members))
+        return _gather(xs, mesh, axis, dim)
 
     @staticmethod
     def backward(ctx, *gs):
-        mesh = ctx.mesh
-        members = _members(mesh, (ctx.axis,))
-        ctx.mesh.collectives.add("reduce-scatter", _nbytes(gs[0]))
-        with _moving():
-            total = _psum_parts(gs, members)
-            pos = ([0] if mesh.symmetric else
-                   [mesh.groups((ctx.axis,))[i].index(i)
-                    for i in mesh.executed])
-            return (None, None, None, *(
-                t.narrow(ctx.dim, p * ctx.size, ctx.size).contiguous()
-                for t, p in zip(total, pos)))
+        return (None, None, None, *_reduce_scatter(gs, ctx.mesh, ctx.axis,
+                                                   ctx.dim, ctx.size))
+
+
+class _AllGatherWhole(torch.autograd.Function):
+    """An all-gather whose members go on to compute the same thing (batch
+    rows replicated over the data axes): each holds the whole cotangent,
+    so the backward keeps its own block of it and sums nothing, as GSPMD
+    transposes a gather into a replicated value."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis, dim, *xs):
+        ctx.dim, ctx.size = dim, xs[0].shape[dim]
+        ctx.pos = _positions(mesh, axis)
+        return _gather(xs, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None, None, *(
+            g.narrow(ctx.dim, p * ctx.size, ctx.size).contiguous()
+            for g, p in zip(gs, ctx.pos)))
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """Forward: each group's sum along `axis`, each member keeping its own
+    block along `dim` (a psum followed by the device's slice). Backward:
+    an all-gather of the members' cotangents (each member's block of the
+    sum was consumed by that member alone)."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis, dim, *xs):
+        size = xs[0].shape[dim] // len(_members(mesh, (axis,))[0])
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return tuple(_reduce_scatter(xs, mesh, axis, dim, size))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None, None, *_gather(gs, ctx.mesh, ctx.axis, ctx.dim))
 
 
 def _axes(mesh: Mesh, axes) -> Tuple[str, ...]:
@@ -648,12 +700,26 @@ def enter(xs, mesh: Mesh, axes) -> list:
     return list(_Enter.apply(mesh, axes, *xs)) if axes else list(xs)
 
 
-def all_gather(xs, mesh: Mesh, axis: str, dim: int) -> list:
-    """Each device's group's blocks (along `axis`) joined along `dim`."""
+def all_gather(xs, mesh: Mesh, axis: str, dim: int,
+               whole: bool = False) -> list:
+    """Each device's group's blocks (along `axis`) joined along `dim`.
+    The backward sums the members' partial cotangents (a reduce-scatter);
+    with `whole`, where every member computes the same thing from the
+    gathered value, it keeps each member's own block of its cotangent."""
     if not _axes(mesh, (axis,)):
         return list(xs)
     dim = dim % xs[0].dim()
-    return list(_AllGather.apply(mesh, axis, dim, *xs))
+    fn = _AllGatherWhole if whole else _AllGather
+    return list(fn.apply(mesh, axis, dim, *xs))
+
+
+def reduce_scatter(xs, mesh: Mesh, axis: str, dim: int) -> list:
+    """The sum of each device's block over its group along `axis`, split
+    along `dim` among the members, each keeping its own block."""
+    if not _axes(mesh, (axis,)):
+        return list(xs)
+    dim = dim % xs[0].dim()
+    return list(_ReduceScatter.apply(mesh, axis, dim, *xs))
 
 
 def pmax(xs, mesh: Mesh, axes) -> list:
@@ -695,5 +761,6 @@ __all__ = [
     "psum",
     "enter",
     "all_gather",
+    "reduce_scatter",
     "pmax",
 ]

@@ -23,18 +23,18 @@ card and fails where there is none):
 
 Parameters are placed as the reference places them: under
 `use_mesh(make_host_mesh(...))`, through `tree_shardings` of the model's
-logical axes. For the dense family without `--grad-compress`, and a
+logical axes. For the dense, vlm, audio, ssm and hybrid families
+(`models/lm/model.PARTITIONED`) without `--grad-compress`, and a
 `--device` that names no index (`cuda`, the default, or `cpu`), the host
 mesh spans every visible device of that type ((n, 1) on ('data',
 'model'): every card, or the one CPU), and the step is data-parallel over
 it, as the reference's pjit over its host mesh: each device holds the
 parameters whole and its rows of each batch (`--batch` must divide by
-n), and the gradients are psummed over 'data' (the partitioned dense
-step, `models/lm/model.py`). Otherwise (the other families, whose
-partitioning is not ported yet, `--grad-compress`, or a device named by
-index such as `cuda:1`) the host mesh is the (1, 1) mesh of that one
-device, as before. On one device every placement is that device and no
-number moves.
+n), and the gradients are psummed over 'data' (the partitioned step,
+`models/lm/model.py`). Otherwise (the moe family, whose partitioning is
+not ported yet, `--grad-compress`, or a device named by index such as
+`cuda:1`) the host mesh is the (1, 1) mesh of that one device. On one
+device every placement is that device and no number moves.
 """
 from __future__ import annotations
 
@@ -94,7 +94,7 @@ def main(argv=None):
 
     dev = resolve_device(args.device)
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
-    spans = (cfg.family == "dense" and not args.grad_compress
+    spans = (cfg.family in M.PARTITIONED and not args.grad_compress
              and (args.device is None
                   or torch.device(args.device).index is None))
     mesh = (make_host_mesh(device=dev) if spans

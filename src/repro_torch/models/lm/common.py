@@ -19,9 +19,9 @@ clamped index `jax.lax.dynamic_update_slice` would use. A KV cache is
 written in place (the positions of this call only) and returned; the JAX
 model returns a new cache, which XLA updates in place under jit.
 
-`attention_spmd` and `mlp_spmd` are the dense blocks partitioned over a
-mesh (`Spmd`: the layout GSPMD makes of the reference's annotations,
-written out).
+`attention_spmd` (self-, windowed and cross-attention) and `mlp_spmd` are
+the blocks partitioned over a mesh (`Spmd`: the layout GSPMD makes of the
+reference's annotations, written out).
 """
 from __future__ import annotations
 
@@ -467,8 +467,8 @@ def dense_block(p, x, cfg: LMConfig, positions, *, kv_cache=None,
 
 
 # ---------------------------------------------------------------------------
-# the dense blocks partitioned over a mesh (explicit SPMD): what GSPMD makes
-# of the JAX model's `shard` annotations, written out
+# the blocks partitioned over a mesh (explicit SPMD): what GSPMD makes of
+# the JAX model's `shard` annotations, written out
 # ---------------------------------------------------------------------------
 
 
@@ -484,7 +484,11 @@ class Spmd:
     backward sums the devices' partial cotangents. FSDP: weights split on
     'embed' over 'data' are all-gathered before use (`local`), their
     gradients reduce-scattered by the gather's backward. The batch rows
-    split over the data axes ('pod', 'data')."""
+    split over the data axes ('pod', 'data'), or, where they do not
+    divide them (`rows_split` False: a batch of one), every data group
+    computes every row, as GSPMD replicates them: then nothing is summed
+    over the data axes, and an FSDP gather's backward keeps each device's
+    own block of its (whole) cotangent."""
 
     def __init__(self, mesh):
         from repro_torch.dist import sharding as S
@@ -496,6 +500,7 @@ class Spmd:
         self.rank = [int(mesh.coords(i).get("model", 0))
                      for i in mesh.executed]
         self.data_axes = tuple(a for a in ("pod", "data") if a in sizes)
+        self.rows_split = True
 
     def map(self, fn, *args) -> list:
         """`fn` on each device's blocks: list arguments are per device,
@@ -503,11 +508,21 @@ class Spmd:
         return [fn(*(a[k] if isinstance(a, list) else a for a in args))
                 for k in range(self.n)]
 
+    def splits(self, n: int) -> bool:
+        """Do the placements split a width of `n` over 'model'? (They
+        split whatever divides, `_fit_spec_to_shape`.)"""
+        return self.tp > 1 and n % self.tp == 0
+
     def enter_model(self, xs) -> list:
         return self.S.enter(xs, self.mesh, ("model",))
 
     def psum_model(self, xs) -> list:
         return self.S.psum(xs, self.mesh, ("model",))
+
+    def psum_split(self, xs) -> list:
+        """A sum over 'model' that split work consumes (each device its
+        own part of it): the backward sums the partial cotangents too."""
+        return self.enter_model(self.psum_model(xs))
 
     def column_in(self, hs) -> list:
         """A replicated input entering column-parallel products (`linear`
@@ -520,6 +535,27 @@ class Spmd:
         GSPMD sums the partial products of the reference's layout."""
         part = self.map(linear, xs, ps)
         return part if self.tp == 1 else self.psum_model(part)
+
+    def own(self, xs, dim: int) -> list:
+        """Each device's block, along `dim`, of a value every device holds
+        whole (split evenly over 'model')."""
+        size = xs[0].shape[dim] // self.tp
+        return [x.narrow(dim, r * size, size)
+                for x, r in zip(xs, self.rank)]
+
+    def gather_cols(self, xs) -> list:
+        """Column blocks split over 'model' joined on every device."""
+        return self.S.all_gather(xs, self.mesh, "model", -1)
+
+    def entered_linear(self, ps) -> list:
+        """A linear's weights, whole on every device, used by split work:
+        their floating leaves entered, so their gradient sums the
+        devices' partial ones."""
+        keys = list(ps[0])
+        cols = {k: (self.enter_model([p[k] for p in ps])
+                    if ps[0][k].is_floating_point() else [p[k] for p in ps])
+                for k in keys}
+        return [{k: cols[k][i] for k in keys} for i in range(self.n)]
 
     def local(self, tree) -> list:
         """A tree of placed values -> one tree of blocks a device, every
@@ -536,7 +572,8 @@ class Spmd:
                         raise NotImplementedError(
                             f"a weight split over {e!r}: FSDP splits "
                             f"weights over 'data' alone")
-                    parts = S.all_gather(parts, self.mesh, "data", d)
+                    parts = S.all_gather(parts, self.mesh, "data", d,
+                                         whole=not self.rows_split)
             return parts
 
         def build(t, k):
@@ -553,86 +590,150 @@ class Spmd:
         return [build(gathered, k) for k in range(self.n)]
 
 
-def check_tp(cfg: LMConfig, tp: int) -> None:
-    """The widths tensor parallelism over `tp` devices splits evenly (the
-    placements split them, `_fit_spec_to_shape`); the port partitions
-    nothing else."""
-    hd = cfg.head_dim
-    bad = [f"{name} {n}" for name, n in (
-        ("n_heads", cfg.n_heads), ("n_kv_heads x head_dim",
-                                   cfg.n_kv_heads * hd),
-        ("d_ff", cfg.d_ff)) if n % tp]
-    if bad:
-        raise NotImplementedError(
-            f"tensor parallelism over {tp} devices needs {', '.join(bad)} "
-            f"to divide by {tp}")
+def write_state(dst: dict, src: dict) -> None:
+    """Copy a block's new state into its cache slot `dst`, leaf by leaf."""
+    for k in dst:
+        if src[k] is not dst[k]:
+            dst[k].copy_(src[k])
 
 
-def _kv_group(cfg: LMConfig, tp: int, rank: int) -> slice:
+def each_device(sp: Spmd, block, ps, hs, cfg: LMConfig, states) -> list:
+    """`block(p, h, cfg, state=)` (a recurrent block) on every device's
+    whole blocks, where no width of it splits over 'model': each new state
+    written into that device's cache slot (`states`, or Nones)."""
+    outs = sp.map(lambda p, h, st: block(p, h, cfg, state=st), ps, hs,
+                  states)
+    for st, (_, new) in zip(states, outs):
+        if st is not None:
+            write_state(st, new)
+    return [o for o, _ in outs]
+
+
+def _kv_group(cfg: LMConfig, tp: int, rank: int) -> Optional[slice]:
     """The KV heads that the q heads of device `rank` attend with, where
     every device holds every KV head (n_kv_heads does not divide tp): a
-    contiguous run, each serving the same number of local q heads."""
+    contiguous run, each serving the same number of local q heads; None
+    where they do not group so."""
     nq = cfg.n_heads // tp
     rep = cfg.n_heads // cfg.n_kv_heads
     q0 = rank * nq
     kv = [(q0 + i) // rep for i in range(nq)]
     first, n = kv[0], kv[-1] - kv[0] + 1
     if nq % n or any(kv[i] - first != i // (nq // n) for i in range(nq)):
-        raise NotImplementedError(
-            f"{nq} q heads a device do not group over {cfg.n_kv_heads} "
-            f"KV heads")
+        return None
     return slice(first, first + n)
 
 
+def _kv_cols(sp: Spmd, tp: int, src, ps, w: str, cfg: LMConfig) -> list:
+    """Each device's K (or V) projection: its own KV heads where they
+    divide the 'model' axis, else every KV head (its column block
+    all-gathered, or, where the columns stay whole, the whole weight)."""
+    if tp == 1 or cfg.n_kv_heads % tp == 0:
+        return [linear(x, p[w]) for x, p in zip(src, ps)]
+    if sp.splits(cfg.n_kv_heads * cfg.head_dim):
+        return sp.gather_cols([linear(x, p[w]) for x, p in zip(src, ps)])
+    return sp.map(linear, src, sp.entered_linear([p[w] for p in ps]))
+
+
+def cross_kv_spmd(sp: Spmd, ps, memory, cfg: LMConfig):
+    """The cross-attention K and V of the encoder's `memory` (replicated
+    over 'model'), as `attention_spmd` lays them out and the cross cache
+    holds them: each device its own KV heads, or every one."""
+    tp = sp.tp if sp.splits(cfg.n_heads * cfg.head_dim) else 1
+    src = memory if tp == 1 else sp.enter_model(memory)
+    b, s = memory[0].shape[:2]
+    k, v = (_kv_cols(sp, tp, src, ps, w, cfg) for w in ("wk", "wv"))
+    return ([t.reshape(b, s, -1, cfg.head_dim) for t in k],
+            [t.reshape(b, s, -1, cfg.head_dim) for t in v])
+
+
 def attention_spmd(sp: Spmd, ps, hs, cfg: LMConfig, positions, *,
-                   kv_caches=None, cache_pos=None):
-    """`attention_block` (causal self-attention) partitioned: `ps` each
-    device's attention weights (local blocks), `hs` its normed hidden
-    [b, S, D], replicated over 'model', `positions` its positions. Each
-    device projects its q heads' columns and its share of the K/V
+                   causal: bool = True, window: int = 0, kv_caches=None,
+                   cache_pos=None, memory=None, kv=None):
+    """`attention_block` partitioned: `ps` each device's attention weights
+    (local blocks), `hs` its normed hidden [b, S, D], replicated over
+    'model', `positions` its positions. Self-attention (causal or not,
+    `window`), cross-attention on the encoder's `memory` (each device's,
+    replicated over 'model'), or on precomputed cross K/V (`kv`, each
+    device's (k, v) as `cross_kv_spmd` gives them; q alone normed, as the
+    reference's `_cross_from_cache`).
+
+    Each device projects its q heads' columns and its share of the K/V
     columns; where the KV heads do not divide the 'model' axis the
     projected K and V are all-gathered (the reference constrains them to
     replicated heads), so each device holds every KV head and its q heads
-    meet their own group (`_kv_group`). The output projection is
-    row-parallel, its partial sums psummed. Returns each device's output
-    [b, S, D]; `kv_caches` (each device's dict) are written in place."""
-    tp, hd = sp.tp, cfg.head_dim
-    check_tp(cfg, tp)
-    nq, kv_split = cfg.n_heads // tp, cfg.n_kv_heads % tp == 0
-    nkv = cfg.n_kv_heads // tp if kv_split else cfg.n_kv_heads
-    hs = sp.column_in(hs)
-    q, k, v = ([linear(h, p[w]) for h, p in zip(hs, ps)]
-               for w in ("wq", "wk", "wv"))
-    if not kv_split:
-        k = sp.S.all_gather(k, sp.mesh, "model", -1)
-        v = sp.S.all_gather(v, sp.mesh, "model", -1)
+    meet their own group (`_kv_group`). Where the q columns split off the
+    head boundaries (10 heads of 256 over 16 devices) or the local heads
+    do not group, q is all-gathered too and every device attends with
+    every head, then takes its own rows of the attention output into the
+    row-parallel `wo`. The output projection is row-parallel, its partial
+    sums psummed; where the placements leave `wo`'s rows whole (the heads'
+    columns do not divide the axis), every device runs the whole block.
+    Returns each device's output [b, S, D]; `kv_caches` (each device's
+    dict) are written in place."""
+    hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    tp = sp.tp if sp.splits(nh * hd) else 1
     b, s = hs[0].shape[:2]
-    q = [t.reshape(b, s, nq, hd) for t in q]
-    k = [t.reshape(b, s, nkv, hd) for t in k]
-    v = [t.reshape(b, s, nkv, hd) for t in v]
+    groups, all_heads = [None] * sp.n, False
+    if tp > 1 and nkv % tp:
+        if nh % tp == 0:
+            groups = [_kv_group(cfg, tp, r) for r in sp.rank]
+        all_heads = nh % tp != 0 or None in groups
+        if all_heads:
+            groups = [None] * sp.n
+    if tp > 1:
+        hs = sp.enter_model(hs)
+    q = [linear(h, p["wq"]) for h, p in zip(hs, ps)]
+    if all_heads:
+        q = sp.gather_cols(q)
+    q = [t.reshape(b, s, -1, hd) for t in q]
+    if kv is None:
+        src = hs if memory is None else (
+            memory if tp == 1 else sp.enter_model(memory))
+        sk = src[0].shape[1]
+        k, v = ([t.reshape(b, sk, -1, hd)
+                 for t in _kv_cols(sp, tp, src, ps, w, cfg)]
+                for w in ("wk", "wv"))
+    else:
+        k, v = kv
     if cfg.qk_norm:  # replicated scales on split heads: partial gradients
-        qn = sp.enter_model([p["qnorm"]["scale"].to(F32) for p in ps])
-        kn = sp.enter_model([p["knorm"]["scale"].to(F32) for p in ps])
-        q = sp.map(lambda t, w: rms_norm(t, {"scale": w}, cfg.norm_eps),
-                   q, qn)
-        k = sp.map(lambda t, w: rms_norm(t, {"scale": w}, cfg.norm_eps),
-                   k, kn)
-    q = sp.map(lambda t, pos: rope(t, pos, cfg.rope_theta), q, positions)
-    kpos = positions if cache_pos is None else [
-        cache_pos + torch.arange(s, device=t.device) for t in k]
-    k = sp.map(lambda t, pos: rope(t, pos, cfg.rope_theta), k, kpos)
-    groups = [None if kv_split else _kv_group(cfg, tp, r) for r in sp.rank]
+        def scales(name):
+            w = [p[name]["scale"].to(F32) for p in ps]
+            return w if tp == 1 else sp.enter_model(w)
+
+        q = sp.map(lambda t, w: rms_norm(t, {"scale": w}, cfg.norm_eps), q,
+                   scales("qnorm"))
+        if kv is None:
+            k = sp.map(lambda t, w: rms_norm(t, {"scale": w}, cfg.norm_eps),
+                       k, scales("knorm"))
+    cross = memory is not None or kv is not None
+    if not cross:  # self-attention: rope
+        q = sp.map(lambda t, pos: rope(t, pos, cfg.rope_theta), q,
+                   positions)
+        kpos = positions if cache_pos is None else [
+            cache_pos + torch.arange(s, device=t.device) for t in k]
+        k = sp.map(lambda t, pos: rope(t, pos, cfg.rope_theta), k, kpos)
     caches = kv_caches or [None] * sp.n
     att = sp.map(lambda q_, k_, v_, c, g: attend(
-        q_, k_, v_, causal=True, kv_cache=c, cache_pos=cache_pos,
-        kv_heads=g), q, k, v, caches, groups)
-    return sp.row([o[0].reshape(b, s, nq * hd) for o in att],
-                  [p["wo"] for p in ps])
+        q_, k_, v_, causal=causal, window=window, kv_cache=c,
+        cache_pos=cache_pos, cross=cross, kv_heads=g),
+        q, k, v, caches, groups)
+    out = [o[0].reshape(b, s, -1) for o in att]
+    if all_heads:
+        out = sp.own(out, -1)
+    wo = [p["wo"] for p in ps]
+    if tp == 1:
+        return sp.map(linear, out, wo)
+    return sp.row(out, wo)
 
 
-def mlp_spmd(sp: Spmd, ps, hs):
+def mlp_spmd(sp: Spmd, ps, hs, cfg: LMConfig):
     """`mlp` partitioned: `wi` and `wg` column-parallel on a replicated
-    input, `wo` row-parallel, its partial sums psummed."""
+    input, `wo` row-parallel, its partial sums psummed; where d_ff does
+    not divide the 'model' axis (the placements leave it whole), every
+    device runs the whole block."""
+    if not sp.splits(cfg.d_ff):
+        return sp.map(mlp, ps, hs)
     hs = sp.column_in(hs)
     h = [silu(linear(x, p["wg"])) * linear(x, p["wi"])
          for x, p in zip(hs, ps)]
@@ -644,6 +745,7 @@ __all__ = [
     "init_attention", "attention_block", "full_attention", "pos_attention",
     "blockwise_attention", "init_mlp", "mlp", "init_dense_block",
     "dense_block", "dt", "kv_quant", "kv_dequant", "sigmoid", "silu",
-    "softplus", "gelu", "attend", "MetaGenerator", "Spmd", "check_tp",
-    "attention_spmd", "mlp_spmd",
+    "softplus", "gelu", "attend", "MetaGenerator", "Spmd",
+    "attention_spmd", "mlp_spmd", "cross_kv_spmd", "write_state",
+    "each_device",
 ]

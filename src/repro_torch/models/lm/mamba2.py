@@ -8,6 +8,9 @@ Counterpart of `repro/models/lm/mamba2.py`. The selective SSM
 is evaluated chunk by chunk: intra-chunk terms as an attention-like
 quadratic form, inter-chunk terms as a short loop over chunk states (the
 JAX model's `lax.scan`). Decode carries O(H * P * N) state per sequence.
+
+`mamba2_spmd` is the block partitioned over a mesh, heads over 'model'
+(the reference's `shard(xh, "batch", None, "heads", None)`).
 """
 from __future__ import annotations
 
@@ -17,12 +20,11 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.lm.common import (dt, init_linear, init_norm, linear,
-                                          normal, rms_norm, silu, softplus,
-                                          uniform)
+from repro_torch.models.lm.common import (F32, dt, each_device, init_linear,
+                                          init_norm, linear, normal,
+                                          rms_norm, silu, softplus, uniform,
+                                          write_state)
 from repro_torch.models.lm.config import LMConfig
-
-F32 = torch.float32
 
 
 def dims(cfg: LMConfig):
@@ -171,5 +173,105 @@ def mamba2_block(p, x, cfg: LMConfig, state: Optional[dict] = None):
     return out, new_state
 
 
+def _conv_state(conv_in, state, width: int):
+    """The conv cache after `conv_in` [B, S, C] (after `state` [B, K-1, C],
+    or zeros): its last K-1 inputs, as `causal_conv1d` keeps them."""
+    if state is None:
+        xp = F.pad(conv_in, (0, 0, width - 1, 0))
+    else:
+        xp = torch.cat([state.to(conv_in.dtype), conv_in], dim=1)
+    return xp[:, -(width - 1):, :]
+
+
+def mamba2_spmd(sp, ps, hs, cfg: LMConfig, states=None):
+    """`mamba2_block` partitioned (`common.Spmd`): `ps` each device's
+    block weights, `hs` its normed hidden [b, S, D], replicated over
+    'model'; `states` each device's blocks of the layer's placed cache
+    ({'conv', 'ssd'}), written in place, or None. Returns each device's
+    output [b, S, D].
+
+    The heads split over 'model' (`A_log`, `D`, `dt_bias`, the SSD state,
+    `out_proj`'s rows). `in_proj`'s columns [z | x | B | C | dt] and
+    `conv_w`'s channels [x | B | C] split evenly by count, off those
+    segments (530 of 8480 columns a device at full width over 16), so
+    both are all-gathered over 'model': each device then takes z, x and
+    dt of its own heads and all of B and C, whose cotangents the gathers'
+    backward sums over the heads. The conv cache splits by count the same
+    way: a decode step gathers it, and every device writes back its own
+    block of the new one. The gated RMSNorm over d_in psums the local
+    sums of squares; `out_proj` is row-parallel, its partial sums
+    psummed."""
+    from repro_torch.models.lm.rglru import causal_conv1d
+
+    d_in, nh, hp, ns = dims(cfg)
+    n_conv = d_in + 2 * ns
+    states = states or [None] * sp.n
+    if sp.tp == 1:
+        return each_device(sp, mamba2_block, ps, hs, cfg, states)
+    if nh % sp.tp:
+        raise NotImplementedError(
+            f"{nh} SSD heads over a 'model' axis of {sp.tp}: the port "
+            f"splits mamba2 by whole heads")
+    b, s = hs[0].shape[:2]
+    nl = nh // sp.tp
+    dl = nl * hp
+    decode = states[0] is not None and s == 1
+    hs = sp.enter_model(hs)
+    proj = [p["in_proj"] for p in ps]
+    if sp.splits(2 * d_in + 2 * ns + nh):
+        zx = sp.gather_cols(sp.map(linear, hs, proj))
+    else:
+        zx = sp.map(linear, hs, sp.entered_linear(proj))
+    conv_w = [p["conv_w"] for p in ps]
+    conv_w = (sp.gather_cols(conv_w) if sp.splits(n_conv)
+              else sp.enter_model(conv_w))
+    conv_in = [t[..., d_in:d_in + n_conv] for t in zx]  # [x | B | C]
+    conv_state = [None] * sp.n
+    if decode:
+        conv_state = [st["conv"] for st in states]
+        if sp.splits(n_conv):
+            conv_state = sp.gather_cols(conv_state)
+
+    def one(p, t, x_all, w, cst, st, r):
+        idx = torch.cat([
+            torch.arange(r * dl, (r + 1) * dl, device=t.device),
+            torch.arange(d_in, n_conv, device=t.device)])
+        conv_out, _ = causal_conv1d(
+            x_all.index_select(-1, idx), w.index_select(-1, idx).to(F32),
+            None if cst is None else cst.index_select(-1, idx))
+        xin, Bc, Cc = torch.split(silu(conv_out).to(t.dtype), [dl, ns, ns],
+                                  dim=-1)
+        xh = xin.reshape(b, s, nl, hp)
+        dtv = t[..., 2 * d_in + 2 * ns + r * nl:][..., :nl]
+        dtv = softplus(dtv.to(F32) + p["dt_bias"][None, None, :])
+        A = -torch.exp(p["A_log"])
+        if decode:
+            y, ssd = ssd_step(xh, dtv, A, Bc, Cc, st["ssd"])
+        else:
+            y, ssd = ssd_chunked(xh, dtv, A, Bc, Cc, cfg.ssm_chunk)
+        y = y + p["D"][None, None, :, None] * xh.to(F32)
+        z = t[..., r * dl:(r + 1) * dl]
+        return (y.reshape(b, s, dl).to(t.dtype) * silu(z)).to(F32), ssd
+
+    outs = sp.map(one, ps, zx, conv_in, conv_w, conv_state, states,
+                  sp.rank)
+    gs = [g for g, _ in outs]
+    # the gated RMSNorm over all of d_in: the local sums of squares psummed
+    var = [t / d_in for t in
+           sp.psum_split([(g * g).sum(dim=-1, keepdim=True) for g in gs])]
+    scale = sp.own(sp.enter_model([p["norm"]["scale"] for p in ps]), -1)
+    ys = [(g * torch.rsqrt(v + cfg.norm_eps) * w.to(F32)).to(h.dtype)
+          for g, v, w, h in zip(gs, var, scale, hs)]
+    if states[0] is not None:
+        with torch.no_grad():
+            new = [_conv_state(x, c, cfg.conv_width)
+                   for x, c in zip(conv_in, conv_state)]
+            if sp.splits(n_conv):
+                new = sp.own(new, -1)
+            for st, c, (_, ssd) in zip(states, new, outs):
+                write_state(st, {"conv": c, "ssd": ssd})
+    return sp.row(ys, [p["out_proj"] for p in ps])
+
+
 __all__ = ["init_mamba2_block", "mamba2_block", "ssd_chunked", "ssd_step",
-           "dims"]
+           "dims", "mamba2_spmd"]

@@ -19,13 +19,14 @@ of logical axis names; stacked layer params get a leading `None`.
 Entry points that make tensors (`init_params`, `init_cache`) run on CUDA
 unless the caller names a device; the forward functions and `loss_fn` run
 where their inputs lie. On parameters placed on a mesh of several
-devices, the dense family's `loss_fn`, `forward_train`, `prefill` and
-`decode_step` run partitioned (tensor parallelism, FSDP, data
+devices, `loss_fn`, `forward_train`, `prefill` and `decode_step` of every
+family but moe run partitioned (tensor parallelism, FSDP, data
 parallelism: the last section).
 """
 from __future__ import annotations
 
 import functools
+import math
 from typing import Any, Dict, Tuple
 
 import torch
@@ -377,11 +378,11 @@ def logits_from_hidden(params, cfg: LMConfig, x):
 def forward_train(params, cfg: LMConfig, tokens, embeds=None,
                   enc_inputs=None):
     """Causal LM (or enc-dec) forward. Returns (logits [B, S, V], aux).
-    On placed parameters (a mesh of several devices) the dense family runs
-    partitioned and the logits come back placed (`_forward_spmd`)."""
+    On placed parameters (a mesh of several devices) it runs partitioned
+    and the logits come back placed (`_forward_spmd`)."""
     sp = _spmd_of(params, cfg)
     if sp is not None:
-        return _forward_spmd(sp, params, cfg, tokens)
+        return _forward_spmd(sp, params, cfg, tokens, embeds, enc_inputs)
     if cfg.family in ("encdec", "audio"):
         return _encdec_forward(params, cfg, tokens, enc_inputs)
     x = embed_tokens(params, cfg, tokens, embeds)
@@ -392,6 +393,7 @@ def forward_train(params, cfg: LMConfig, tokens, embeds=None,
 
 def _encode(params, cfg: LMConfig, enc_inputs):
     """The encoder stack over precomputed frames -> normed memory."""
+    _need_frames(cfg, enc_inputs)
     enc_x = enc_inputs.to(C.dt(cfg))  # [B, S_enc, D]
     positions = torch.arange(enc_x.shape[1], device=enc_x.device)
 
@@ -402,6 +404,12 @@ def _encode(params, cfg: LMConfig, enc_inputs):
     for j in range(cfg.n_enc_layers):
         enc_x = enc_layer(_index(params["enc"], j), enc_x)
     return C.rms_norm(enc_x, params["ln_enc"], cfg.norm_eps)
+
+
+def _need_frames(cfg: LMConfig, enc_inputs) -> None:
+    if enc_inputs is None:
+        raise ValueError(f"{cfg.name} ({cfg.family}): the encoder needs "
+                         f"its frames, batch['enc_inputs']")
 
 
 def _encdec_forward(params, cfg: LMConfig, tokens, enc_inputs):
@@ -429,11 +437,11 @@ def loss_fn(params, cfg: LMConfig, batch):
     log-probability is the same number, since every other term of that
     sum is an exact zero, and it saves a [B, S, V] float32 tensor.
 
-    On placed parameters the dense family's loss runs partitioned
-    (`_loss_spmd`) and comes back as a placed scalar, replicated."""
+    On placed parameters the loss runs partitioned (`_loss_spmd`) and
+    comes back as a placed scalar, replicated."""
     sp = _spmd_of(params, cfg)
     if sp is not None:
-        return _loss_spmd(sp, params, cfg, batch["tokens"])
+        return _loss_spmd(sp, params, cfg, batch)
     tokens = batch["tokens"]
     logits, aux = forward_train(
         params, cfg, tokens,
@@ -527,10 +535,11 @@ def cache_logical(cfg: LMConfig):
 def prefill(params, cfg: LMConfig, tokens, max_len: int, embeds=None,
             enc_inputs=None):
     """Run the prompt, fill caches. Returns (last_logits, cache). On placed
-    parameters (dense family) both come back placed (`_prefill_spmd`)."""
+    parameters both come back placed (`_prefill_spmd`)."""
     sp = _spmd_of(params, cfg)
     if sp is not None:
-        return _prefill_spmd(sp, params, cfg, tokens, max_len)
+        return _prefill_spmd(sp, params, cfg, tokens, max_len, embeds,
+                             enc_inputs)
     if cfg.family in ("encdec", "audio"):
         return _encdec_prefill(params, cfg, tokens, max_len, enc_inputs)
     caches = init_cache(cfg, tokens.shape[0], max_len, device=tokens.device)
@@ -542,8 +551,8 @@ def prefill(params, cfg: LMConfig, tokens, max_len: int, embeds=None,
 
 def decode_step(params, cfg: LMConfig, token, caches, pos: int):
     """token: [B, 1] integer; pos: the current absolute position. On placed
-    parameters (dense family) the token, the caches and the logits are
-    placed (`_decode_spmd`)."""
+    parameters the token, the caches and the logits are placed
+    (`_decode_spmd`)."""
     pos = int(pos)
     sp = _spmd_of(params, cfg)
     if sp is not None:
@@ -602,7 +611,7 @@ def _encdec_decode(params, cfg, token, caches, pos: int):
 
 
 # ---------------------------------------------------------------------------
-# the dense family partitioned over a mesh (explicit SPMD)
+# the LM partitioned over a mesh (explicit SPMD)
 # ---------------------------------------------------------------------------
 #
 # Placed parameters (`dist.sharding.place` of `tree_shardings(logical,
@@ -610,19 +619,25 @@ def _encdec_decode(params, cfg, token, caches, pos: int):
 # partitioned program: every device runs the same ops on its own blocks in
 # mesh order, joined by the collectives of `dist/sharding.py`. The layout
 # is the one GSPMD makes of the reference's annotations: the batch rows
-# over ('pod', 'data'); attention and MLP as in `common.Spmd`; the vocab
-# over 'model' for the embedding lookup (each device looks up the tokens
-# its rows hold, zeros elsewhere, psummed), the head and the loss, whose
+# over ('pod', 'data'), or replicated where they do not divide them;
+# attention and MLP as in `common.Spmd`, Mamba-2 heads and the RG-LRU
+# width over 'model' (`mamba2_spmd`, `rglru_spmd`); the vocab over
+# 'model' for the embedding lookup (each device looks up the tokens its
+# rows hold, zeros elsewhere, psummed), the head and the loss, whose
 # log-softmax takes the max and the sum of exponentials over 'model'
-# (`model.py:287-305`, `:356-364` of the reference); KV caches split by
-# batch and, where they divide, KV heads (`cache_shardings`).
+# (`model.py:287-305`, `:356-364` of the reference); the vlm's image
+# embeds projected (`frontend_proj`, replicated over 'model') and
+# prepended; the audio family's encoder memory replicated over 'model'
+# and its cross K/V cached per device's heads; caches split by batch and,
+# where they divide, KV heads, SSD heads or channels (`cache_shardings`).
 #
-# Only the dense family is partitioned: the others wait for ROADMAP queue
-# 1 item 13.7 and refuse a mesh of several devices.
+# The dense, vlm, audio, ssm and hybrid families are partitioned; the moe
+# family waits for ROADMAP queue 1 item 13.7b and refuses a mesh of
+# several devices.
 
-ROADMAP_NEXT = ("ROADMAP queue 1 item 13.7 (tensor parallelism, FSDP and "
-                "data parallelism for the moe, ssm, hybrid, vlm and audio "
-                "families)")
+ROADMAP_NEXT = ("ROADMAP queue 1 item 13.7b (tensor parallelism, FSDP and "
+                "data parallelism for the moe family)")
+PARTITIONED = ("dense", "vlm", "audio", "ssm", "hybrid")
 
 
 def _first_leaf(tree):
@@ -639,17 +654,19 @@ def _spmd_of(params, cfg: LMConfig):
     leaf = _first_leaf(params)
     if not isinstance(leaf, Sharded):
         return None
-    if cfg.family != "dense":
+    if cfg.family not in PARTITIONED:
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}) on mesh {dict(leaf.mesh.shape)}: "
-            f"the port partitions the dense family only; the others wait "
-            f"for {ROADMAP_NEXT}")
+            f"the port partitions the {', '.join(PARTITIONED)} families; "
+            f"the {cfg.family} family waits for {ROADMAP_NEXT}")
     return C.Spmd(leaf.mesh)
 
 
 def _row_parts(sp, x, name: str) -> list:
-    """The blocks of a batch input, whose rows must split over every data
-    axis of more than one device and nothing else."""
+    """The blocks of a batch input, whose rows split over every data axis
+    of more than one device where the batch divides them, and over
+    nothing else: `dryrun.batch_shardings`' layout. Rows that do not
+    divide are replicated, and `sp.rows_split` says so."""
     from repro_torch.dist.sharding import Sharded, spec_axes
 
     if not isinstance(x, Sharded) or x.mesh != sp.mesh:
@@ -657,12 +674,13 @@ def _row_parts(sp, x, name: str) -> list:
                          f"(dryrun.batch_shardings)")
     sizes = dict(sp.mesh.shape)
     want = {a for a in sp.data_axes if sizes[a] > 1}
+    split = not want or x.shape[0] % math.prod(sizes[a] for a in want) == 0
     spec = x.sharding.spec
-    first = set(spec_axes(spec[:1]))
-    if {a for a in first if sizes[a] > 1} != want \
-            or spec_axes(spec[1:]):
-        raise ValueError(f"{name}: rows must split over {sorted(want)}, "
-                         f"not {spec!r}")
+    first = {a for a in spec_axes(spec[:1]) if sizes[a] > 1}
+    if first != (want if split else set()) or spec_axes(spec[1:]):
+        raise ValueError(f"{name}: rows must split over "
+                         f"{sorted(want) if split else []}, not {spec!r}")
+    sp.rows_split = split
     return list(x.parts)
 
 
@@ -687,8 +705,19 @@ def _layer_slice(tree, j: int):
                      S.NamedSharding(tree.mesh, S.P(*tree.sharding.spec[1:])))
 
 
-def _embed_spmd(sp, params, cfg: LMConfig, toks) -> list:
-    """Vocab-parallel lookup: each device its own rows of the table."""
+def _cache_blocks(sp, tree, j=None) -> list:
+    """Each device's blocks of a placed cache tree (layer `j`'s slot of
+    stacked ones)."""
+    def one(k):
+        return tree_map(lambda c: c.parts[k] if j is None else c.parts[k][j],
+                        tree)
+    return [one(k) for k in range(sp.n)]
+
+
+def _embed_spmd(sp, params, cfg: LMConfig, toks, embeds=None) -> list:
+    """Vocab-parallel lookup: each device its own rows of the table; the
+    vlm's image embeds projected (`frontend_proj`, whole over 'model')
+    and prepended."""
     tables = [p["embed"] for p in sp.local({"embed": params["embed"]})]
     vloc = tables[0].shape[0]
 
@@ -699,7 +728,12 @@ def _embed_spmd(sp, params, cfg: LMConfig, toks) -> list:
         zero = torch.zeros((), dtype=rows.dtype, device=rows.device)
         return torch.where(ok[..., None], rows, zero).to(C.dt(cfg))
 
-    return sp.psum_model(sp.map(one, tables, toks, sp.rank))
+    xs = sp.psum_model(sp.map(one, tables, toks, sp.rank))
+    if cfg.family == "vlm" and embeds is not None:
+        w = sp.local({"fp": params["frontend_proj"]})
+        xs = sp.map(lambda e, p, x: torch.cat(
+            [C.linear(e.to(C.dt(cfg)), p["fp"]), x], dim=1), embeds, w, xs)
+    return xs
 
 
 def _logits_spmd(sp, params, cfg: LMConfig, xs) -> list:
@@ -725,60 +759,150 @@ def _logits_spmd(sp, params, cfg: LMConfig, xs) -> list:
     return sp.map(one, hs, top, sp.rank)
 
 
+def _norm(sp, xs, ps, key: str, cfg: LMConfig) -> list:
+    return sp.map(lambda x, p: C.rms_norm(x, p[key], cfg.norm_eps), xs, ps)
+
+
+def _layer_spmd(sp, layer_p, xs, cfg: LMConfig, kind: str, positions, *,
+                caches=None, cache_pos=None, memory=None) -> list:
+    """`_apply_layer` partitioned: `layer_p` the layer's placed weights,
+    `caches` each device's blocks of its cache slot (written in place) or
+    None; a decoder layer attends to the encoder's `memory` (training) or
+    to the cross K/V its cache holds."""
+    ps = sp.local(layer_p)
+    hs = _norm(sp, xs, ps, "ln1", cfg)
+    mix = [p["mix"] for p in ps]
+    if kind == "ssm":
+        return sp.map(torch.add, xs, M2.mamba2_spmd(sp, mix, hs, cfg,
+                                                     caches))
+    if kind == "rec":
+        out = RG.rglru_spmd(sp, mix, hs, cfg, caches)
+    else:
+        self_c = caches
+        if kind == "dec" and caches is not None:
+            self_c = [c["self"] for c in caches]
+        out = C.attention_spmd(
+            sp, mix, hs, cfg, positions, causal=kind != "enc",
+            window=cfg.local_window if kind == "attn_local" else 0,
+            kv_caches=self_c, cache_pos=cache_pos)
+    xs = sp.map(torch.add, xs, out)
+    if kind == "dec":
+        hx = _norm(sp, xs, ps, "ln_x", cfg)
+        xattn = [p["xattn"] for p in ps]
+        if caches is None:
+            xout = C.attention_spmd(sp, xattn, hx, cfg, None, causal=False,
+                                    memory=memory)
+        else:
+            kv = ([c["cross"]["k"] for c in caches],
+                  [c["cross"]["v"] for c in caches])
+            xout = C.attention_spmd(sp, xattn, hx, cfg, None, causal=False,
+                                    kv=kv)
+        xs = sp.map(torch.add, xs, xout)
+    hf = _norm(sp, xs, ps, "ln2", cfg)
+    return sp.map(torch.add, xs,
+                  C.mlp_spmd(sp, [p["ffn"] for p in ps], hf, cfg))
+
+
 def _stack_spmd(sp, params, xs, cfg: LMConfig, positions, *, caches=None,
                 cache_pos=None) -> list:
-    """The dense layers partitioned (each under `_remat` when training);
-    caches (placed, stacked) written in place."""
-    def layer(layer_p, xs, layer_c):
-        ps = sp.local(layer_p)
-        hs = sp.map(lambda x, p: C.rms_norm(x, p["ln1"], cfg.norm_eps), xs,
-                    ps)
-        out = C.attention_spmd(sp, [p["mix"] for p in ps], hs, cfg,
-                               positions, kv_caches=layer_c,
-                               cache_pos=cache_pos)
-        xs = sp.map(torch.add, xs, out)
-        hf = sp.map(lambda x, p: C.rms_norm(x, p["ln2"], cfg.norm_eps), xs,
-                    ps)
-        return sp.map(torch.add, xs,
-                      C.mlp_spmd(sp, [p["ffn"] for p in ps], hf))
+    """The (super-)block stack and its tail partitioned (each super-block
+    under `_remat` when training), as `_run_stack`; caches (placed,
+    stacked) written in place."""
+    pat, n_super, tail = _kind_groups(layer_kinds(cfg))
 
-    train = _remat(lambda lp, xs: layer(lp, xs, None), cfg)
-    for j in range(cfg.n_layers):
+    def block(layer_p, xs, layer_c):
+        if len(pat) == 1:
+            return _layer_spmd(sp, layer_p, xs, cfg, pat[0], positions,
+                               caches=layer_c, cache_pos=cache_pos)
+        for i, kind in enumerate(pat):
+            xs = _layer_spmd(
+                sp, layer_p[f"l{i}"], xs, cfg, kind, positions,
+                caches=None if layer_c is None else [c[f"l{i}"]
+                                                     for c in layer_c],
+                cache_pos=cache_pos)
+        return xs
+
+    train = _remat(lambda lp, xs: block(lp, xs, None), cfg)
+    for j in range(n_super):
         layer_p = _layer_slice(params["layers"], j)
         if caches is None:
             xs = train(layer_p, xs)
         else:
-            xs = layer(layer_p, xs, [
-                tree_map(lambda c, k=k: c.parts[k][j], caches["layers"])
-                for k in range(sp.n)])
+            xs = block(layer_p, xs, _cache_blocks(sp, caches["layers"], j))
+    for i, kind in enumerate(tail):
+        xs = _layer_spmd(
+            sp, params[f"tail{i}"], xs, cfg, kind, positions,
+            caches=None if caches is None else _cache_blocks(
+                sp, caches[f"tail{i}"]), cache_pos=cache_pos)
     return xs
 
 
-def _train_logits(sp, params, cfg: LMConfig, toks) -> list:
+def _arange(xs, start: int = 0) -> list:
+    return [start + torch.arange(x.shape[1], device=x.device) for x in xs]
+
+
+def _encode_spmd(sp, params, cfg: LMConfig, enc) -> list:
+    """The encoder stack over each device's frames -> its normed memory,
+    replicated over 'model'."""
+    _need_frames(cfg, enc)
+    xs = [e.to(C.dt(cfg)) for e in enc]
+    positions = _arange(xs)
+    layer = _remat(lambda lp, xs: _layer_spmd(sp, lp, xs, cfg, "enc",
+                                              positions), cfg)
+    for j in range(cfg.n_enc_layers):
+        xs = layer(_layer_slice(params["enc"], j), xs)
+    return _norm(sp, xs, sp.local({"ln_enc": params["ln_enc"]}), "ln_enc",
+                 cfg)
+
+
+def _train_logits(sp, params, cfg: LMConfig, toks, embeds=None,
+                  enc=None) -> list:
     """Each device's vocab block of the training forward's logits."""
-    xs = _embed_spmd(sp, params, cfg, toks)
-    positions = [torch.arange(x.shape[1], device=x.device) for x in xs]
+    if cfg.family in ("encdec", "audio"):
+        memory = _encode_spmd(sp, params, cfg, enc)
+        xs = _embed_spmd(sp, params, cfg, toks)
+        positions = _arange(xs)
+        layer = _remat(lambda lp, xs: _layer_spmd(
+            sp, lp, xs, cfg, "dec", positions, memory=memory), cfg)
+        for j in range(cfg.n_dec_layers):
+            xs = layer(_layer_slice(params["dec"], j), xs)
+        return _logits_spmd(sp, params, cfg, xs)
+    xs = _embed_spmd(sp, params, cfg, toks, embeds)
     return _logits_spmd(sp, params, cfg,
-                        _stack_spmd(sp, params, xs, cfg, positions))
+                        _stack_spmd(sp, params, xs, cfg, _arange(xs)))
 
 
-def _forward_spmd(sp, params, cfg: LMConfig, tokens):
-    logits = _train_logits(sp, params, cfg,
-                           _row_parts(sp, tokens, "tokens"))
-    b, s = tokens.shape
+def _batch_parts(sp, tokens, embeds, enc_inputs):
+    """Each device's rows of the tokens and of the modality inputs given."""
+    return (_row_parts(sp, tokens, "tokens"),
+            *(None if x is None else _row_parts(sp, x, name)
+              for x, name in ((embeds, "embeds"),
+                              (enc_inputs, "enc_inputs"))))
+
+
+def _forward_spmd(sp, params, cfg: LMConfig, tokens, embeds=None,
+                  enc_inputs=None):
+    parts = _batch_parts(sp, tokens, embeds, enc_inputs)
+    logits = _train_logits(sp, params, cfg, *parts)
+    b, s = tokens.shape[0], logits[0].shape[1]
     return (_placed(sp, logits, ("batch", None, "vocab"),
                     (b, s, padded_vocab(cfg))),
             torch.zeros((), dtype=F32, device=logits[0].device))
 
 
-def _loss_spmd(sp, params, cfg: LMConfig, tokens):
+def _loss_spmd(sp, params, cfg: LMConfig, batch):
     """The next-token cross-entropy over the vocab blocks: the max and the
     sum of exponentials psummed over 'model', the target's logit taken
-    where it lies; each device's row sum psummed over the data axes."""
+    where it lies; each device's row sum psummed over the data axes the
+    rows split over (rows replicated there are every device's whole)."""
     from repro_torch.dist import sharding as S
 
-    toks = _row_parts(sp, tokens, "tokens")
-    lf = [lg[:, :-1].to(F32) for lg in _train_logits(sp, params, cfg, toks)]
+    tokens = batch["tokens"]
+    toks, embeds, enc = _batch_parts(sp, tokens, batch.get("embeds"),
+                                     batch.get("enc_inputs"))
+    s = tokens.shape[1]
+    lf = [lg[:, -s:][:, :-1].to(F32)
+          for lg in _train_logits(sp, params, cfg, toks, embeds, enc)]
     top = S.pmax([t.amax(dim=-1, keepdim=True) for t in lf], sp.mesh,
                  ("model",))
     shifted = sp.map(torch.sub, lf, top)
@@ -793,10 +917,11 @@ def _loss_spmd(sp, params, cfg: LMConfig, tokens):
                                                 device=t.device))
 
     picked = sp.psum_model(sp.map(target, shifted, toks, sp.rank))
-    n = tokens.shape[0] * (tokens.shape[1] - 1)
-    local = sp.map(lambda t, e: -(t - torch.log(e)).sum() / n, picked,
-                   sumexp)
-    loss = S.psum(local, sp.mesh, sp.data_axes)
+    n = tokens.shape[0] * (s - 1)
+    loss = sp.map(lambda t, e: -(t - torch.log(e)).sum() / n, picked,
+                  sumexp)
+    if sp.rows_split:
+        loss = S.psum(loss, sp.mesh, sp.data_axes)
     return S.Sharded(loss, S.replicated(sp.mesh))
 
 
@@ -837,12 +962,13 @@ def cache_shardings(caches, mesh):
     return walk(caches, None)
 
 
-def _init_cache_spmd(sp, cfg: LMConfig, batch: int, max_len: int):
+def _init_cache_spmd(sp, cfg: LMConfig, batch: int, max_len: int,
+                     enc_len: int = 0):
     """Empty placed caches: each device's zero blocks (ring positions -1),
     laid out by `cache_shardings`."""
     from repro_torch.dist import sharding as S
 
-    shapes = init_cache(cfg, batch, max_len, device="meta")
+    shapes = init_cache(cfg, batch, max_len, enc_len=enc_len, device="meta")
     shardings = cache_shardings(shapes, sp.mesh)
     devs = sp.mesh.device_list
 
@@ -861,23 +987,52 @@ def _init_cache_spmd(sp, cfg: LMConfig, batch: int, max_len: int):
     return walk(shapes, shardings, None)
 
 
-def _prefill_spmd(sp, params, cfg: LMConfig, tokens, max_len: int):
-    toks = _row_parts(sp, tokens, "tokens")
-    caches = _init_cache_spmd(sp, cfg, tokens.shape[0], max_len)
-    xs = _embed_spmd(sp, params, cfg, toks)
-    positions = [torch.arange(x.shape[1], device=x.device) for x in xs]
-    xs = _stack_spmd(sp, params, xs, cfg, positions, caches=caches)
+def _dec_stack_spmd(sp, params, xs, cfg: LMConfig, positions, caches,
+                    cache_pos=None) -> list:
+    """The decoder layers against their self caches (written in place)
+    and the cross K/V the caches hold."""
+    for j in range(cfg.n_dec_layers):
+        xs = _layer_spmd(sp, _layer_slice(params["dec"], j), xs, cfg, "dec",
+                         positions, caches=_cache_blocks(sp, caches, j),
+                         cache_pos=cache_pos)
+    return xs
+
+
+def _prefill_spmd(sp, params, cfg: LMConfig, tokens, max_len: int,
+                  embeds=None, enc_inputs=None):
+    toks, embeds, enc = _batch_parts(sp, tokens, embeds, enc_inputs)
+    b = tokens.shape[0]
+    if cfg.family in ("encdec", "audio"):
+        memory = _encode_spmd(sp, params, cfg, enc)
+        caches = _init_cache_spmd(sp, cfg, b, max_len,
+                                  enc_len=memory[0].shape[1])
+        for j in range(cfg.n_dec_layers):
+            ps = sp.local(_layer_slice(params["dec"], j))
+            k, v = C.cross_kv_spmd(sp, [p["xattn"] for p in ps], memory, cfg)
+            for c, kk, vv in zip(_cache_blocks(sp, caches["cross"], j), k,
+                                 v):
+                c["k"].copy_(kk)
+                c["v"].copy_(vv)
+        xs = _embed_spmd(sp, params, cfg, toks)
+        xs = _dec_stack_spmd(sp, params, xs, cfg, _arange(xs), caches)
+    else:
+        caches = _init_cache_spmd(sp, cfg, b, max_len)
+        xs = _embed_spmd(sp, params, cfg, toks, embeds)
+        xs = _stack_spmd(sp, params, xs, cfg, _arange(xs), caches=caches)
     logits = _logits_spmd(sp, params, cfg, [x[:, -1:] for x in xs])
     return (_placed(sp, logits, ("batch", None, "vocab"),
-                    (tokens.shape[0], 1, padded_vocab(cfg))), caches)
+                    (b, 1, padded_vocab(cfg))), caches)
 
 
 def _decode_spmd(sp, params, cfg: LMConfig, token, caches, pos: int):
     toks = _row_parts(sp, token, "token")
     xs = _embed_spmd(sp, params, cfg, toks)
-    positions = [pos + torch.arange(1, device=x.device) for x in xs]
-    xs = _stack_spmd(sp, params, xs, cfg, positions, caches=caches,
-                     cache_pos=pos)
+    positions = _arange(xs, pos)
+    if cfg.family in ("encdec", "audio"):
+        xs = _dec_stack_spmd(sp, params, xs, cfg, positions, caches, pos)
+    else:
+        xs = _stack_spmd(sp, params, xs, cfg, positions, caches=caches,
+                         cache_pos=pos)
     logits = _logits_spmd(sp, params, cfg, xs)
     return (_placed(sp, logits, ("batch", None, "vocab"),
                     (token.shape[0], 1, padded_vocab(cfg))), caches)

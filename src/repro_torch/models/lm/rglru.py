@@ -14,6 +14,9 @@ output = W_o (h * gelu(gate)). Prefill evaluates the recurrence with
 `associative_scan`, the odd/even recursion of `jax.lax.associative_scan`
 (so its products and sums are taken in the same order); decode is an O(1)
 state update.
+
+`rglru_spmd` is the block partitioned over a mesh, 'ffn' (the RG-LRU
+width) over 'model' (the reference's `shard(xv, "batch", None, "ffn")`).
 """
 from __future__ import annotations
 
@@ -22,9 +25,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.lm.common import (dt, gelu, init_linear, linear,
-                                          normal, sigmoid, softplus,
-                                          uniform)
+from repro_torch.models.lm.common import (dt, each_device, gelu,
+                                          init_linear, linear, normal,
+                                          sigmoid, softplus, uniform,
+                                          write_state)
 from repro_torch.models.lm.config import LMConfig
 
 F32 = torch.float32
@@ -68,13 +72,19 @@ def causal_conv1d(x, w, state=None):
     return y, new_state
 
 
-def _rglru_gates(p, xc):
+def _gate_inputs(p, xc):
+    """The recurrence and input gates' pre-activations."""
     if not isinstance(p["wa"], dict):  # diagonal gates
-        r_gate = sigmoid((xc * p["wa"]).to(F32))
-        i_gate = sigmoid((xc * p["wi"]).to(F32))
-    else:
-        r_gate = sigmoid(linear(xc, p["wa"]).to(F32))
-        i_gate = sigmoid(linear(xc, p["wi"]).to(F32))
+        return xc * p["wa"], xc * p["wi"]
+    return linear(xc, p["wa"]), linear(xc, p["wi"])
+
+
+def _rglru_gates(p, xc, pre=None):
+    """(a, b) of the recurrence; `pre` the gates' pre-activations where
+    the caller has them (`_gate_inputs` otherwise)."""
+    ra, ia = _gate_inputs(p, xc) if pre is None else pre
+    r_gate = sigmoid(ra.to(F32))
+    i_gate = sigmoid(ia.to(F32))
     log_a = -_C * softplus(p["lam"]) * r_gate  # [B, S, R]
     a = torch.exp(log_a)
     gated_x = i_gate * xc.to(F32)
@@ -127,13 +137,13 @@ def associative_scan(fn, elems, dim: int):
     return tuple(_interleave(e, o, dim) for e, o in zip(even, odd))
 
 
-def rglru_scan(p, xc, chunk: int = 0):
+def rglru_scan(p, xc, chunk: int = 0, pre=None):
     """Parallel evaluation of h_t = a_t h_{t-1} + b_t over the sequence.
 
     chunk == 0: one associative scan over the whole sequence. chunk > 0: an
     associative scan within chunks and a loop carrying the chunk-boundary
     state."""
-    a, b = _rglru_gates(p, xc)
+    a, b = _rglru_gates(p, xc, pre)
     if not chunk or xc.shape[1] <= chunk:
         _, h = associative_scan(_comb, (a, b), dim=1)
         return h.to(xc.dtype), h[:, -1].to(F32)
@@ -157,9 +167,9 @@ def rglru_scan(p, xc, chunk: int = 0):
     return h.to(xc.dtype), h0.to(F32)
 
 
-def rglru_step(p, xc, h_prev):
+def rglru_step(p, xc, h_prev, pre=None):
     """One decode step. xc: [B, 1, R]; h_prev: [B, R] f32."""
-    a, b = _rglru_gates(p, xc)
+    a, b = _rglru_gates(p, xc, pre)
     h = a[:, 0] * h_prev + b[:, 0]
     return h[:, None, :].to(xc.dtype), h
 
@@ -189,5 +199,50 @@ def rglru_block(p, x, cfg: LMConfig, state: Optional[dict] = None):
     return out, new_state
 
 
+def rglru_spmd(sp, ps, hs, cfg: LMConfig, states=None):
+    """`rglru_block` partitioned (`common.Spmd`): `ps` each device's block
+    weights, `hs` its normed hidden [b, S, D], replicated over 'model';
+    `states` each device's blocks of the layer's placed cache ({'conv',
+    'h'}), written in place, or None. Returns each device's output.
+
+    `wx` and `wgate` are column-parallel over the RG-LRU width; `conv_w`,
+    `lam`, the conv state and `h` split the same way, aligned, and the
+    scan runs channel by channel, so all of it is local. The [R, R] gates
+    `wa` and `wi` split their input rows ('ffn', None): each device's
+    partial products are reduce-scattered over 'model' (the psum, then
+    the device's own R block); diagonal gates are local. `wo` is
+    row-parallel, its partial sums psummed. Where the width does not
+    divide the 'model' axis, every device runs the whole block."""
+    states = states or [None] * sp.n
+    if not sp.splits(cfg.lru_width):  # every width of the block whole
+        return each_device(sp, rglru_block, ps, hs, cfg, states)
+    hs = sp.enter_model(hs)
+    decode = states[0] is not None and hs[0].shape[1] == 1
+    xv = [linear(h, p["wx"]) for h, p in zip(hs, ps)]
+    g = [gelu(linear(h, p["wgate"])) for h, p in zip(hs, ps)]
+    conv = sp.map(lambda x, p, st: causal_conv1d(
+        x, p["conv_w"].to(F32), st["conv"] if decode else None),
+        xv, ps, states)
+    xc = [c for c, _ in conv]
+    if isinstance(ps[0]["wa"], dict):  # [R, R] gates: rows split
+        pre = list(zip(*(sp.S.reduce_scatter(
+            sp.map(linear, xc, [p[w] for p in ps]), sp.mesh, "model", -1)
+            for w in ("wa", "wi"))))
+    else:
+        pre = [None] * sp.n
+    if decode:
+        hh = sp.map(lambda p, x, st, q: rglru_step(p, x, st["h"], q),
+                    ps, xc, states, pre)
+    else:
+        hh = sp.map(lambda p, x, q: rglru_scan(p, x, chunk=cfg.rglru_chunk,
+                                               pre=q), ps, xc, pre)
+    out = sp.row([h.to(gg.dtype) * gg for (h, _), gg in zip(hh, g)],
+                 [p["wo"] for p in ps])
+    for st, (_, new_conv), (_, h_last) in zip(states, conv, hh):
+        if st is not None:
+            write_state(st, {"conv": new_conv, "h": h_last})
+    return out
+
+
 __all__ = ["init_rglru_block", "rglru_block", "rglru_scan", "rglru_step",
-           "causal_conv1d", "associative_scan"]
+           "causal_conv1d", "associative_scan", "rglru_spmd"]

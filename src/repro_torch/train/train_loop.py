@@ -18,12 +18,13 @@ bfloat16) in microbatch order and are scaled by 1 / grad_accum, and aux
 values (the BN batch moments) are averaged the same way.
 
 On placed parameters and a placed batch (a mesh of several devices: the
-partitioned dense LM, `models/lm/model.py`) the step is the SPMD one:
+partitioned LM, `models/lm/model.py`) the step is the SPMD one:
 each device differentiates the replicated loss on its blocks, a
 microbatch is a contiguous slice of each device's rows (so no row
 moves: the rows of the reference's microbatch of the batch reordered
 device by device), each microbatch's gradients of parameters replicated
-over the data axes ('pod', 'data') are psummed over them before they
+over the data axes ('pod', 'data') are psummed over those the rows split
+over (a batch that does not divide them is every device's) before they
 are cast to `accum_dtype` and accumulated, as GSPMD orders the
 reference's (FSDP's are reduce-scattered over 'data' by autograd), and
 AdamW updates each block (`train/optimizer.py`). The step runs inside
@@ -101,18 +102,24 @@ def value_and_grad(loss_fn: Callable, params, batch, has_aux: bool = False):
     return loss.detach(), aux, T.unflatten(treedef, grads)
 
 
-def _psum_data(grads):
+def _psum_data(grads, rows=("pod", "data")):
     """Placed gradients psummed over the data axes their parameter is
-    replicated on (the batch rows split over them)."""
+    replicated on and the batch rows split over (`rows`; rows replicated
+    over an axis leave every device there the whole gradient)."""
     def one(g):
         if not isinstance(g, S.Sharded):
             return g
-        axes = [a for a in ("pod", "data")
-                if a not in S.spec_axes(g.sharding.spec)]
+        axes = [a for a in rows if a not in S.spec_axes(g.sharding.spec)]
         return S.Sharded(S.psum(list(g.parts), g.mesh, axes), g.sharding)
 
     with torch.no_grad():
         return T.tree_map(one, grads)
+
+
+def row_axes(batch):
+    """The mesh axes a placed batch's rows split over."""
+    lead = next(x for x in T.leaves(batch) if isinstance(x, S.Sharded))
+    return S.spec_axes(lead.sharding.spec[:1])
 
 
 def make_train_step(
@@ -142,7 +149,7 @@ def make_train_step(
         def vg(mb):
             loss, aux, grads = value_and_grad(loss_fn, params, mb, has_aux)
             if isinstance(T.leaves(params)[0], S.Sharded):
-                grads = _psum_data(grads)
+                grads = _psum_data(grads, row_axes(mb))
             return loss, aux, grads
 
         if grad_accum == 1:

@@ -248,9 +248,9 @@ def test_use_mesh_axis_size_and_shard():
         x = torch.ones(4, 3)
         assert S.shard(x, "batch", "embed") is x
     assert S.current_mesh() is None
-    # tensor parallelism over 'model' and FSDP over 'data' run for the
-    # dense family; a non-dense family's program refuses them
-    cfg = reduced_config("mamba2-1.3b")
+    # tensor parallelism over 'model' and FSDP over 'data' run for every
+    # family but moe, whose program refuses them (item 13.7b)
+    cfg = reduced_config("qwen2-moe-a2.7b")
     params, logical = M.init_params(cfg, 0, device="cpu")
     for bad, fsdp in ((LM.make_mesh((1, 2), ("data", "model"),
                                     devices=cpus(2)), False), (mesh, True)):
@@ -261,7 +261,7 @@ def test_use_mesh_axis_size_and_shard():
             tokens = S.place(torch.zeros((2, 8), dtype=torch.long),
                              S.NamedSharding(bad, S.logical_to_spec(
                                  ("batch", None), bad)))
-            with pytest.raises(NotImplementedError, match="item 13"):
+            with pytest.raises(NotImplementedError, match="item 13.7b"):
                 M.loss_fn(placed, cfg, {"tokens": tokens})
     with S.use_mesh(LM.make_mesh((1, 1), ("data", "model"),
                                  devices=cpus(1)), fsdp=True):

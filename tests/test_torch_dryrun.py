@@ -16,10 +16,14 @@ package's, and its counts against analytic ones.
     the matmul FLOPs and the collective bytes written out below, and two
     and three layers add exactly one layer's each (the two-point
     extrapolation is exact).
-  * The CLI: a non-dense cell reports `error` with the
-    `NotImplementedError` naming its ROADMAP item, long_500k is `skipped`
-    for a dense arch; the hillclimb prints the three term deltas against
-    its baseline and forwards `--precision` to the tuner.
+  * One cell of each partitioned family beyond the dense one is `ok`:
+    mamba2's long_500k on 2x16x16 (a batch of one row, replicated over
+    the data axes), recurrentgemma's train_4k on 16x16 (10 heads of 256
+    split mid-head over 16), phi-3-vision's and seamless's decode_32k.
+  * The CLI: a moe cell reports `error` with the `NotImplementedError`
+    naming its ROADMAP item, long_500k is `skipped` for a dense arch; the
+    hillclimb prints the three term deltas against its baseline and
+    forwards `--precision` to the tuner.
 """
 from __future__ import annotations
 
@@ -265,21 +269,37 @@ def test_one_layer_counts_equal_the_analytic_ones(tmp_path):
         seen[3].flops, seen[3].hbm_bytes, seen[3].coll_bytes)
 
 
+@pytest.mark.parametrize("arch,shape,multi_pod", [
+    ("mamba2-1.3b", "long_500k", True),
+    ("recurrentgemma-2b", "train_4k", False),
+    ("phi-3-vision-4.2b", "decode_32k", False),
+    ("seamless-m4t-large-v2", "decode_32k", False)],
+    ids=lambda v: v if isinstance(v, str) else ("2x16x16" if v
+                                                 else "16x16"))
+def test_family_cells_are_ok(tmp_path, arch, shape, multi_pod):
+    rep = D.run_cell(arch, D.shape_by_name(shape), multi_pod=multi_pod,
+                     out_dir=str(tmp_path))
+    assert rep["status"] == "ok", rep.get("trace", rep)
+    r = rep["roofline"]
+    assert r["flops_per_device"] > 0 and r["collective_bytes_per_device"] > 0
+    assert rep["memory"]["argument_bytes"] > 0
+
+
 def test_cli_reports_error_and_skipped_cells(tmp_path, capsys):
     out = str(tmp_path)
-    reps = D.main(["--arch", "mamba2-1.3b", "--shape", "decode_32k",
+    reps = D.main(["--arch", "qwen2-moe-a2.7b", "--shape", "decode_32k",
                    "--out", out])
     assert reps[0]["status"] == "error"
     assert reps[0]["error"].startswith("NotImplementedError")
-    assert "item 13.7" in reps[0]["error"]
+    assert "item 13.7b" in reps[0]["error"]
     reps = D.main(["--arch", "llama3.2-1b", "--shape", "long_500k",
                    "--multi-pod", "--out", out])
     assert reps[0]["status"] == "skipped"
     names = sorted(os.listdir(out))
     assert names == ["llama3.2-1b__long_500k__2x16x16.json",
-                     "mamba2-1.3b__decode_32k__16x16.json"]
+                     "qwen2-moe-a2.7b__decode_32k__16x16.json"]
     text = capsys.readouterr().out
-    assert "[dryrun] mamba2-1.3b__decode_32k__16x16: error" in text
+    assert "[dryrun] qwen2-moe-a2.7b__decode_32k__16x16: error" in text
 
 
 def test_hillclimb_prints_deltas_against_its_baseline(tmp_path, capsys):

@@ -24,7 +24,7 @@ state under FSDP, `accum_dtype=bfloat16` at grad_accum 2 against JAX's
 (gradients within `LM_BF16_GRAD_L2`: each microbatch's f32 gradients
 differ in their last bits, which can move a bf16 rounding), the
 collectives' backward passes against their transposes, and the refusals
-(a non-dense family on a mesh of several devices names its ROADMAP item).
+(the moe family on a mesh of several devices names its ROADMAP item).
 """
 from __future__ import annotations
 
@@ -348,16 +348,18 @@ def test_collectives_backward_are_their_transposes():
     assert counts["all-reduce"] == 2 * 3 * 8
 
 
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "mamba2-1.3b",
-                                  "recurrentgemma-2b"])
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b"])
 @pytest.mark.parametrize("mesh_id", ["tp", "fsdp"])
 def test_other_families_refuse_a_mesh(arch, mesh_id):
+    """The moe family, whose partitioning waits for item 13.7b, refuses a
+    mesh of several devices (the others partition:
+    tests/test_torch_tp_families.py)."""
     cfg = reduced_config(arch)
     params, logical = TM.init_params(cfg, 0, device="cpu")
     shape, fsdp = MESHES[mesh_id]
     pp, batch = _place(_mesh(shape), fsdp, params, logical,
                        {"tokens": torch.zeros((2, 8), dtype=torch.long)})
-    with pytest.raises(NotImplementedError, match="item 13.7"):
+    with pytest.raises(NotImplementedError, match="item 13.7b"):
         TM.loss_fn(pp, cfg, batch)
 
 
@@ -375,18 +377,27 @@ def test_batch_rows_must_split_over_the_data_axes():
                                                    dtype=torch.long)})
 
 
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "phi-3-vision-4.2b",
+                                  "seamless-m4t-large-v2", "mamba2-1.3b",
+                                  "recurrentgemma-2b"])
 def test_train_cli_is_data_parallel_over_the_visible_devices(
-        tmp_path, monkeypatch):
+        tmp_path, monkeypatch, arch):
     """`launch/train.py` over two visible devices (the CPU named twice):
     a (2, 1) host mesh, each device its rows; the first loss within the
     bf16 bound of one device's (the reduced config is bf16), and a
     restart from a placed checkpoint continues the straight run bit for
-    bit."""
+    bit. The driver feeds tokens alone, as the reference's does, so the
+    audio family (whose encoder needs its frames) fails alike on one
+    device and on the mesh it spans."""
     from repro_torch.launch import train as CLI
 
-    argv = ["--reduced", "--steps", "3", "--device", "cpu",
+    argv = ["--arch", arch, "--reduced", "--steps", "3", "--device", "cpu",
             "--log-every", "100"]
-    one = CLI.main(argv)
+    if arch == "seamless-m4t-large-v2":
+        with pytest.raises(ValueError, match="enc_inputs"):
+            CLI.main(argv)
+    else:
+        one = CLI.main(argv)
     monkeypatch.setattr(LM, "visible_devices",
                         lambda device=None: (torch.device("cpu"),) * 2)
     seen = []
@@ -397,10 +408,18 @@ def test_train_cli_is_data_parallel_over_the_visible_devices(
         return real(mesh, fsdp)
 
     monkeypatch.setattr(CLI, "use_mesh", spy)
+    if arch == "seamless-m4t-large-v2":
+        with pytest.raises(ValueError, match="enc_inputs"):
+            CLI.main(argv)
+        assert seen == [{"data": 2, "model": 1}]
+        return
     two = CLI.main(argv)
     assert seen == [{"data": 2, "model": 1}]
     assert abs(two[0] - one[0]) / one[0] <= PP.LM_BF16_LOSS_RTOL
-    assert two[-1] < two[0]
+    # the loss goes the way one device's goes (down for llama; the
+    # reduced mamba2 and recurrentgemma rise over three steps on both)
+    assert (two[-1] < two[0]) == (one[-1] < one[0])
+    assert arch != "llama3.2-1b" or two[-1] < two[0]
     ck = tmp_path / "ck"
     saved = CLI.main(argv + ["--ckpt-dir", str(ck), "--ckpt-every", "2"])
     assert saved == two
