@@ -213,15 +213,27 @@ last line:
      cost of one card standing for several devices, not scaling. A
      decode step at 4 slots under TP (1, 2): logits within
      LM_BF16_GRAD_L2 (relative L2) of the mesh-less step's, ms of both.
-     (e) The vlm, audio, ssm and hybrid families (`DRYRUN_FAMILIES`:
-     phi-3-vision 2 layers with 576 image embeds, seamless 2 + 2 layers
-     with 1024 frames, mamba2 2 layers, recurrentgemma 5 layers, each at
-     its published widths, bf16, 8 x 128) gated on the same three meshes
-     as Llama, each against its own bf16 floor measured in the run, and
-     a TP prefill and 4 decode steps (logits within LM_BF16_GRAD_L2);
-     ms, device intervals and collective bytes a mesh; the part's
-     seconds. The dry-run's llama3.2-1b decode_32k 2x16x16 and train_4k
-     16x16 cells, mamba2's long_500k 2x16x16 (a replicated row) and
+     (e) The vlm, audio, ssm, hybrid and moe families
+     (`DRYRUN_FAMILIES`: phi-3-vision 2 layers with 576 image embeds,
+     seamless 2 + 2 layers with 1024 frames, mamba2 2 layers,
+     recurrentgemma 5 layers, qwen2-moe 2 layers, each at its published
+     widths, bf16, 8 x 128) gated on the same three meshes as Llama, each
+     against its own bf16 floor measured in the run, and a TP prefill and
+     4 decode steps (logits within LM_BF16_GRAD_L2); qwen2-moe's float32
+     routing on every mesh identical to the mesh-less step's (the same
+     top-k experts and the same kept (token, choice) pairs in every
+     layer), and the mesh-less step must drop pairs at its published
+     capacity_factor 1.25 (the count printed: capacity over the global
+     batch at work). bf16 routing is discontinuous (a last-bit change of
+     a router input moves a top-k choice; the moved choices are printed),
+     so qwen2-moe's bf16 loss is held within max(LM_BF16_LOSS_RTOL,
+     DRYRUN_FLOOR_X x 2 x the mesh-less bf16 loss's distance from the
+     float32 loss) of the mesh-less one, and its DP gradients to the
+     float32 ones as TP's and FSDP's; its DP step is not run (two
+     replicas' weights and AdamW state, old and new, exceed the card).
+     ms, device intervals and collective bytes a mesh; each arch's
+     seconds and the part's. The dry-run's llama3.2-1b decode_32k
+     2x16x16 and train_4k 16x16 cells, mamba2's long_500k 2x16x16 (a replicated row) and
      recurrentgemma's train_4k 16x16 (heads split mid-head) on meta
      devices must report `ok` (terms, bottleneck, memory, seconds
      printed). K2-K6 launch counts must be 0;
@@ -1884,7 +1896,8 @@ DRYRUN_FAMILIES = (("phi-3-vision-4.2b", dict(n_layers=2)),
                    ("seamless-m4t-large-v2",
                     dict(n_layers=4, n_enc_layers=2, n_dec_layers=2)),
                    ("mamba2-1.3b", dict(n_layers=2)),
-                   ("recurrentgemma-2b", dict(n_layers=5)))
+                   ("recurrentgemma-2b", dict(n_layers=5)),
+                   ("qwen2-moe-a2.7b", dict(n_layers=2)))
 # A mesh's bf16 gradients from the float32 gradients of the same weights,
 # at most this many times the mesh-less bf16 gradients' own distance (the
 # bf16 noise floor, measured in the same run): two bf16 steps part by the
@@ -2205,8 +2218,11 @@ def dryrun_family(card, dev, arch, over):
     train step without a mesh, then on TP (1, 2), DP (2, 1) and FSDP
     (2, 2) meshes that name the card, gated as (a) gates Llama (the bf16
     floor measured here for this arch at this depth); a TP decode (a
-    prefill and 4 steps) against the mesh-less one. Returns the
-    failures."""
+    prefill and 4 steps) against the mesh-less one. A moe arch's float32
+    routing (`moe.record_routes`) must be the mesh-less step's on every
+    mesh, and the mesh-less step must drop (token, choice) pairs.
+    Returns the failures."""
+    import contextlib
     import dataclasses
 
     import torch
@@ -2215,6 +2231,7 @@ def dryrun_family(card, dev, arch, over):
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.layers import exact_f32
     from repro_torch.models.lm import model as M
+    from repro_torch.models.lm import moe as MOE
     from repro_torch.train import optimizer as O
     from repro_torch.train import parity as PP
     from repro_torch.train.train_loop import (
@@ -2225,6 +2242,17 @@ def dryrun_family(card, dev, arch, over):
     )
 
     t_arch = time.perf_counter()
+    moe = get_config(arch).family == "moe"
+
+    def routes():
+        return MOE.record_routes() if moe else contextlib.nullcontext([])
+
+    def same_routes(a, b):
+        return len(a) == len(b) and all(
+            torch.equal(x["idx"], y["idx"]) and torch.equal(x["keep"],
+                                                           y["keep"])
+            for x, y in zip(a, b))
+
     cfg = dataclasses.replace(get_config(arch), **over)
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     b, s = DRYRUN_BATCH
@@ -2247,8 +2275,20 @@ def dryrun_family(card, dev, arch, over):
     def to32(p):
         return M.tree_map(lambda t: t.to(torch.float32), p)
 
-    loss32, g32 = grads_of(cfg32, to32(params), on(batch))
+    with routes() as routes32:
+        loss32, g32 = grads_of(cfg32, to32(params), on(batch))
     g32 = M.tree_map(lambda t: t.cpu(), g32)
+    bad = []
+    if moe:
+        pairs = sum(r["keep"].numel() for r in routes32)
+        dropped = sum(int((~r["keep"]).sum()) for r in routes32)
+        print(f"[dryrun] (e) {arch}: the mesh-less float32 step drops "
+              f"{dropped} of {pairs} (token, choice) pairs over its "
+              f"{len(routes32)} MoE layers at capacity_factor "
+              f"{cfg.capacity_factor} ({MOE.capacity(cfg, b * s)} slots "
+              f"an expert for {b * s} tokens); must be > 0")
+        if dropped == 0:
+            bad.append(f"{arch}: no (token, choice) pair dropped")
     torch.cuda.empty_cache()
     state = O.init_state(params)
     ms, prof, coll = {}, {}, {"none": {}}
@@ -2256,49 +2296,87 @@ def dryrun_family(card, dev, arch, over):
                          DRYRUN_REPS, warmup=1)
     prof["none"] = profile_steps(lambda: step(params, state, on(batch)))
     del state
-    loss0, g0 = grads_of(cfg, params, on(batch))
+    with routes() as routes0:
+        loss0, g0 = grads_of(cfg, params, on(batch))
     floor = _leaf_errors(names, g32, g0, dev)
     print(f"[dryrun] (e) {arch} ({cfg.family}, published widths, "
           f"{over}, bf16, batch {b} x {s}): the bf16 noise floor, the "
           f"mesh-less bf16 gradients' worst leaf from the float32 "
-          f"gradients of the same weights, {floor[0]:.3g} ({floor[1]})")
-    bad = []
+          f"gradients of the same weights, {floor[0]:.3g} ({floor[1]}); "
+          f"the bf16 loss {float(loss0):.6f} from the float32 loss "
+          f"{float(loss32):.6f}: rel "
+          f"{abs(float(loss0) - float(loss32)) / abs(float(loss32)):.3g}")
+    # bf16 routing is discontinuous: a last-bit change of the router's
+    # input moves a top-k choice, so two bf16 runs of a moe arch part by
+    # up to twice the bf16 loss's own distance from the float32 loss
+    loss_floor = abs(float(loss0) - float(loss32)) / abs(float(loss32))
+    loss_bound = (max(PP.LM_BF16_LOSS_RTOL, DRYRUN_FLOOR_X * 2 * loss_floor)
+                  if moe else PP.LM_BF16_LOSS_RTOL)
     for tag, (shape, fsdp) in DRYRUN_MESHES.items():
         t0 = time.perf_counter()
         mesh = make_mesh(shape, ("data", "model"),
                          devices=[dev] * (shape[0] * shape[1]))
         pp, pb = _placed_family(params, logical, mesh, fsdp, batch)
-        state = O.init_state(pp)
         mesh.collectives.reset()
-        out = step(pp, state, pb)
-        torch.cuda.synchronize()
-        coll[tag] = mesh.collectives.snapshot()
-        del out
-        ms[tag] = time_ms(lambda: step(pp, state, pb), DRYRUN_REPS,
-                          warmup=1)
-        prof[tag] = profile_steps(lambda: step(pp, state, pb))
-        del state
-        loss1, g1 = grads_of(cfg, pp, pb)
+        # a moe arch's DP step is not run: two replicas of qwen2-moe's
+        # 1.76e9 weights and float32 AdamW moments, old and new, fill the
+        # card's 80 GB (its gates below need no optimizer)
+        if moe and tag == "dp":
+            ms[tag] = prof[tag] = None
+        else:
+            state = O.init_state(pp)
+            out = step(pp, state, pb)
+            torch.cuda.synchronize()
+            coll[tag] = mesh.collectives.snapshot()
+            del out
+            ms[tag] = time_ms(lambda: step(pp, state, pb), DRYRUN_REPS,
+                              warmup=1)
+            prof[tag] = profile_steps(lambda: step(pp, state, pb))
+            del state
+        with routes() as routes1:
+            loss1, g1 = grads_of(cfg, pp, pb)
+        coll.setdefault(tag, mesh.collectives.snapshot())
+        if moe:
+            moved = sum(int((x["idx"] != y["idx"]).sum())
+                        for x, y in zip(routes0, routes1))
+            kept = sum(int((x["keep"] != y["keep"]).sum())
+                       for x, y in zip(routes0, routes1))
+            rel = abs(float(loss1) - float(loss32)) / abs(float(loss32))
+            print(f"[dryrun] (e) {arch} {tag}: bf16 routing against the "
+                  f"mesh-less bf16 step's: {moved} of {pairs} top-k "
+                  f"choices and {kept} kept flags differ; the bf16 loss "
+                  f"from the float32 loss: rel {rel:.3g}")
         loss_err = abs(float(loss1) - float(loss0)) / abs(float(loss0))
         apart = _leaf_errors(names, g0, g1, dev)
         truth = _leaf_errors(names, g32, g1, dev)
         del pp, pb, g1
         torch.cuda.empty_cache()
         pp, pb = _placed_family(to32(params), logical, mesh, fsdp, batch)
-        l32, g = grads_of(cfg32, pp, pb)
+        with routes() as routes_mesh:
+            l32, g = grads_of(cfg32, pp, pb)
+        routed = same_routes(routes32, routes_mesh)
         err32 = abs(float(l32) - float(loss32)) / abs(float(loss32))
         worst32 = _leaf_errors(names, g32, g, dev)
         del pp, pb, g
         torch.cuda.empty_cache()
         limit = DRYRUN_FLOOR_X * floor[0]
-        apart_bound = PP.LM_BF16_GRAD_L2 if tag == "dp" else None
-        ok = (loss_err <= PP.LM_BF16_LOSS_RTOL and err32 <= PP.LM_LOSS_RTOL
+        # a moe arch's DP step parts from the mesh-less one by the floor
+        # (its bf16 routing moves too), so DP is held as TP and FSDP are
+        apart_bound = (PP.LM_BF16_GRAD_L2 if tag == "dp" and not moe
+                       else None)
+        ok = (loss_err <= loss_bound and err32 <= PP.LM_LOSS_RTOL
               and worst32[0] <= PP.LM_GRAD_L2 and truth[0] <= limit
-              and (apart_bound is None or apart[0] <= apart_bound))
+              and (apart_bound is None or apart[0] <= apart_bound)
+              and routed)
+        if moe:
+            print(f"[dryrun] (e) {arch} {tag}: float32 routing "
+                  f"{'identical to' if routed else 'DIFFERS from'} the "
+                  f"mesh-less step's (top-k experts and kept pairs of "
+                  f"{len(routes_mesh)} MoE layers)")
         print(f"[dryrun] (e) {arch} {tag} {dict(mesh.shape)} fsdp={fsdp} "
               f"on [{dev}] x {mesh.size}: bf16 loss {float(loss1):.6f} "
               f"against {float(loss0):.6f} without a mesh (rel "
-              f"{loss_err:.3g}, bound {PP.LM_BF16_LOSS_RTOL}); bf16 "
+              f"{loss_err:.3g}, bound {loss_bound:.3g}); bf16 "
               f"gradients' worst leaf {truth[0]:.3g} ({truth[1]}) from the "
               f"float32 gradients (bound {DRYRUN_FLOOR_X} x the floor "
               f"{floor[0]:.3g} = {limit:.3g}) and {apart[0]:.3g} "
@@ -2308,6 +2386,8 @@ def dryrun_family(card, dev, arch, over):
               f"worst float32 gradient leaf {worst32[0]:.3g} ({worst32[1]}; "
               f"bound {PP.LM_GRAD_L2}); {'ok' if ok else 'FAILED'} "
               f"({time.perf_counter() - t0:.1f} s)")
+        if not routed:
+            bad.append(f"{arch} {tag}: float32 routing differs")
         if not ok:
             bad.append(f"{arch} {tag}: bf16 loss {loss_err:.3g}, bf16 grads "
                        f"{truth[0]:.3g} from float32 (limit {limit:.3g}), "
@@ -2322,14 +2402,16 @@ def dryrun_family(card, dev, arch, over):
         c = coll[tag]
         moved = ", ".join(f"{k} {v}" for k, v in c.items()
                           if k != "n_ops" and v) or "none"
-        print(f"[dryrun] (e) {card}: {arch} step on {tag}: {ms[tag]:.4f} "
-              f"ms (median of {DRYRUN_REPS}, {ms[tag] / ms['none']:.3f} x "
-              f"without a mesh); {busy}; collective operand bytes a "
-              f"device: {moved} ({c.get('n_ops', 0)} collectives): host "
-              f"cost of one card standing for {tag}'s devices, not "
-              f"scaling")
+        timed = ("not run (the weights and AdamW state of two replicas, "
+                 "old and new, exceed the card; collective bytes those "
+                 "of the gradients alone)" if ms[tag] is None else
+                 f"{ms[tag]:.4f} ms (median of {DRYRUN_REPS}, "
+                 f"{ms[tag] / ms['none']:.3f} x without a mesh)")
+        print(f"[dryrun] (e) {card}: {arch} step on {tag}: {timed}; "
+              f"{busy}; collective operand bytes a device: {moved} "
+              f"({c.get('n_ops', 0)} collectives): host cost of one card "
+              f"standing for {tag}'s devices, not scaling")
     del g0, g32
-    torch.cuda.empty_cache()
     bad += _family_decode(card, dev, arch, cfg, params, logical)
     del params
     torch.cuda.empty_cache()
@@ -2389,13 +2471,13 @@ def _family_decode(card, dev, arch, cfg, params, logical):
 
 
 def dryrun_families(card, dev):
-    """(e) the vlm, audio, ssm and hybrid families on the card's meshes
-    (`dryrun_family` each). Returns the failures."""
+    """(e) the vlm, audio, ssm, hybrid and moe families on the card's
+    meshes (`dryrun_family` each). Returns the failures."""
     t0 = time.perf_counter()
     bad = []
     for arch, over in DRYRUN_FAMILIES:
         bad += dryrun_family(card, dev, arch, over)
-    print(f"[dryrun] (e) the four families: "
+    print(f"[dryrun] (e) the {len(DRYRUN_FAMILIES)} archs: "
           f"{time.perf_counter() - t0:.1f} s")
     return bad
 

@@ -32,10 +32,10 @@ traces at depths L1 and L2 (one and two super-blocks) are extrapolated to
 the full depth (`_extrapolate`; the port's counts are exactly linear in
 the layers, as its loop runs each one), and the full config is traced for
 memory and as the proof; `--method unroll` takes the terms from the full
-trace alone. The dense, vlm, audio, ssm and hybrid families are
-partitioned (a long_500k cell's batch of one row replicated over the data
-axes); the moe family's cells report `error` with the
-`NotImplementedError` that names the ROADMAP item they wait for, 13.7b.
+trace alone. Every family is partitioned (a long_500k cell's batch of one
+row replicated over the data axes; the moe family's experts over 'model'
+where they divide it, routed with `plan.capacity_factor` over the global
+batch). A cell whose step raises reports `error` with the exception.
 
 Usage (on a CPU: the meta devices need no card):
   python -m repro_torch.launch.dryrun --arch llama3.2-1b --shape train_4k

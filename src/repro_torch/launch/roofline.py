@@ -11,9 +11,10 @@ text (`collective_bytes`). The port has no compiler and no HLO, so XLA's
 HLO parsers have no counterpart here. Its terms come from running the step
 under `trace_step` (on meta devices in the dry-run: shapes without data):
 
-  * FLOPs: `torch.utils.flop_counter.FlopCounterMode`, which counts the
-    matmul-class ops (mm, bmm, addmm, convolutions, attention) of the
-    forward, the backward and every recomputation; XLA also counts
+  * FLOPs: the matmul-class ops (mm, bmm, addmm, convolutions,
+    attention) of the forward, the backward and every recomputation, by
+    `torch.utils.flop_counter`'s formulas (`FlopCounterMode`'s, applied in
+    the one dispatch mode that counts the bytes too); XLA also counts
     elementwise FLOPs, so the port's count is the smaller;
   * bytes: every op's input and output bytes (`_OpCounter`), one device's
     program op by op as eager PyTorch runs it: the traffic of the eager
@@ -45,7 +46,7 @@ from typing import Dict
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
-from torch.utils.flop_counter import FlopCounterMode
+from torch.utils.flop_counter import flop_registry
 
 from repro_torch.dist import sharding as S
 
@@ -82,11 +83,13 @@ def _aliases(func) -> bool:
 
 
 class _OpCounter(TorchDispatchMode):
-    """Bytes every op reads and writes, and the live bytes of the storages
-    the traced program allocates (each released when its storage is)."""
+    """FLOPs of the matmul-class ops (`FlopCounterMode`'s formulas), bytes
+    every op reads and writes, and the live bytes of the storages the
+    traced program allocates (each released when its storage is)."""
 
     def __init__(self):
         super().__init__()
+        self.flops = 0
         self.hbm_bytes = 0
         self.live = 0
         self.peak = 0
@@ -99,6 +102,9 @@ class _OpCounter(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        flops = flop_registry.get(func._overloadpacket)
+        if flops is not None:
+            self.flops += flops(*args, **kwargs, out_val=out)
         if _aliases(func):
             return out
         outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
@@ -139,12 +145,12 @@ def trace_step(fn, mesh=None) -> StepTrace:
         mesh.collectives.reset()
     counter = _OpCounter()
     t0 = time.perf_counter()
-    with FlopCounterMode(display=False) as flops, counter:
+    with counter:
         out = fn()
     seconds = time.perf_counter() - t0
     coll = (mesh.collectives.snapshot() if mesh is not None
             else {**{k: 0 for k in _COLLECTIVES}, "n_ops": 0})
-    return StepTrace(float(flops.get_total_flops()), float(counter.hbm_bytes),
+    return StepTrace(float(counter.flops), float(counter.hbm_bytes),
                      coll, counter.peak, seconds, out)
 
 

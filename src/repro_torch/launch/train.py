@@ -23,18 +23,20 @@ card and fails where there is none):
 
 Parameters are placed as the reference places them: under
 `use_mesh(make_host_mesh(...))`, through `tree_shardings` of the model's
-logical axes. For the dense, vlm, audio, ssm and hybrid families
-(`models/lm/model.PARTITIONED`) without `--grad-compress`, and a
+logical axes. For every family, with or without `--grad-compress`, and a
 `--device` that names no index (`cuda`, the default, or `cpu`), the host
 mesh spans every visible device of that type ((n, 1) on ('data',
 'model'): every card, or the one CPU), and the step is data-parallel over
 it, as the reference's pjit over its host mesh: each device holds the
 parameters whole and its rows of each batch (`--batch` must divide by
-n), and the gradients are psummed over 'data' (the partitioned step,
-`models/lm/model.py`). Otherwise (the moe family, whose partitioning is
-not ported yet, `--grad-compress`, or a device named by index such as
-`cuda:1`) the host mesh is the (1, 1) mesh of that one device. On one
-device every placement is that device and no number moves.
+n), the gradients are psummed over 'data' (the partitioned step,
+`models/lm/model.py`; the moe family's capacity and aux loss over the
+whole batch), and `--grad-compress` compresses the psummed gradients, its
+residual placed like the parameters and checkpointed so. A device named
+by index (such as `cuda:1`) keeps the (1, 1) mesh of that one device. On
+one device every placement is that device and no number moves. The
+driver feeds tokens alone, as the reference's does, so the audio family
+(whose encoder needs its frames) cannot train through it.
 """
 from __future__ import annotations
 
@@ -94,9 +96,7 @@ def main(argv=None):
 
     dev = resolve_device(args.device)
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
-    spans = (cfg.family in M.PARTITIONED and not args.grad_compress
-             and (args.device is None
-                  or torch.device(args.device).index is None))
+    spans = args.device is None or torch.device(args.device).index is None
     mesh = (make_host_mesh(device=dev) if spans
             else make_host_mesh(devices=[dev]))
     dev = mesh.device_list[0]

@@ -727,12 +727,12 @@ def attention_spmd(sp: Spmd, ps, hs, cfg: LMConfig, positions, *,
     return sp.row(out, wo)
 
 
-def mlp_spmd(sp: Spmd, ps, hs, cfg: LMConfig):
+def mlp_spmd(sp: Spmd, ps, hs, cfg: LMConfig, d_ff: Optional[int] = None):
     """`mlp` partitioned: `wi` and `wg` column-parallel on a replicated
-    input, `wo` row-parallel, its partial sums psummed; where d_ff does
-    not divide the 'model' axis (the placements leave it whole), every
-    device runs the whole block."""
-    if not sp.splits(cfg.d_ff):
+    input, `wo` row-parallel, its partial sums psummed; where its width
+    (`d_ff`, default cfg.d_ff) does not divide the 'model' axis (the
+    placements leave it whole), every device runs the whole block."""
+    if not sp.splits(d_ff or cfg.d_ff):
         return sp.map(mlp, ps, hs)
     hs = sp.column_in(hs)
     h = [silu(linear(x, p["wg"])) * linear(x, p["wi"])

@@ -20,8 +20,8 @@ Entry points that make tensors (`init_params`, `init_cache`) run on CUDA
 unless the caller names a device; the forward functions and `loss_fn` run
 where their inputs lie. On parameters placed on a mesh of several
 devices, `loss_fn`, `forward_train`, `prefill` and `decode_step` of every
-family but moe run partitioned (tensor parallelism, FSDP, data
-parallelism: the last section).
+family run partitioned (tensor parallelism, expert parallelism, FSDP,
+data parallelism: the last section).
 """
 from __future__ import annotations
 
@@ -380,7 +380,7 @@ def forward_train(params, cfg: LMConfig, tokens, embeds=None,
     """Causal LM (or enc-dec) forward. Returns (logits [B, S, V], aux).
     On placed parameters (a mesh of several devices) it runs partitioned
     and the logits come back placed (`_forward_spmd`)."""
-    sp = _spmd_of(params, cfg)
+    sp = _spmd_of(params)
     if sp is not None:
         return _forward_spmd(sp, params, cfg, tokens, embeds, enc_inputs)
     if cfg.family in ("encdec", "audio"):
@@ -439,7 +439,7 @@ def loss_fn(params, cfg: LMConfig, batch):
 
     On placed parameters the loss runs partitioned (`_loss_spmd`) and
     comes back as a placed scalar, replicated."""
-    sp = _spmd_of(params, cfg)
+    sp = _spmd_of(params)
     if sp is not None:
         return _loss_spmd(sp, params, cfg, batch)
     tokens = batch["tokens"]
@@ -536,7 +536,7 @@ def prefill(params, cfg: LMConfig, tokens, max_len: int, embeds=None,
             enc_inputs=None):
     """Run the prompt, fill caches. Returns (last_logits, cache). On placed
     parameters both come back placed (`_prefill_spmd`)."""
-    sp = _spmd_of(params, cfg)
+    sp = _spmd_of(params)
     if sp is not None:
         return _prefill_spmd(sp, params, cfg, tokens, max_len, embeds,
                              enc_inputs)
@@ -554,7 +554,7 @@ def decode_step(params, cfg: LMConfig, token, caches, pos: int):
     parameters the token, the caches and the logits are placed
     (`_decode_spmd`)."""
     pos = int(pos)
-    sp = _spmd_of(params, cfg)
+    sp = _spmd_of(params)
     if sp is not None:
         return _decode_spmd(sp, params, cfg, token, caches, pos)
     if cfg.family in ("encdec", "audio"):
@@ -629,15 +629,11 @@ def _encdec_decode(params, cfg, token, caches, pos: int):
 # embeds projected (`frontend_proj`, replicated over 'model') and
 # prepended; the audio family's encoder memory replicated over 'model'
 # and its cross K/V cached per device's heads; caches split by batch and,
-# where they divide, KV heads, SSD heads or channels (`cache_shardings`).
-#
-# The dense, vlm, audio, ssm and hybrid families are partitioned; the moe
-# family waits for ROADMAP queue 1 item 13.7b and refuses a mesh of
-# several devices.
-
-ROADMAP_NEXT = ("ROADMAP queue 1 item 13.7b (tensor parallelism, FSDP and "
-                "data parallelism for the moe family)")
-PARTITIONED = ("dense", "vlm", "audio", "ssm", "hybrid")
+# where they divide, KV heads, SSD heads or channels (`cache_shardings`);
+# the moe family's experts over 'model' where they divide it, routed on
+# the global batch: capacity, token order and the aux loss over every
+# row (`moe.moe_spmd`), its aux loss carried through the stack into the
+# loss as the mesh-less `loss_fn` adds it.
 
 
 def _first_leaf(tree):
@@ -646,7 +642,7 @@ def _first_leaf(tree):
     return tree
 
 
-def _spmd_of(params, cfg: LMConfig):
+def _spmd_of(params):
     """The partitioned program's context where `params` are placed on a
     mesh of several devices; None on the device path."""
     from repro_torch.dist.sharding import Sharded
@@ -654,11 +650,6 @@ def _spmd_of(params, cfg: LMConfig):
     leaf = _first_leaf(params)
     if not isinstance(leaf, Sharded):
         return None
-    if cfg.family not in PARTITIONED:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) on mesh {dict(leaf.mesh.shape)}: "
-            f"the port partitions the {', '.join(PARTITIONED)} families; "
-            f"the {cfg.family} family waits for {ROADMAP_NEXT}")
     return C.Spmd(leaf.mesh)
 
 
@@ -764,17 +755,18 @@ def _norm(sp, xs, ps, key: str, cfg: LMConfig) -> list:
 
 
 def _layer_spmd(sp, layer_p, xs, cfg: LMConfig, kind: str, positions, *,
-                caches=None, cache_pos=None, memory=None) -> list:
+                caches=None, cache_pos=None, memory=None):
     """`_apply_layer` partitioned: `layer_p` the layer's placed weights,
     `caches` each device's blocks of its cache slot (written in place) or
     None; a decoder layer attends to the encoder's `memory` (training) or
-    to the cross K/V its cache holds."""
+    to the cross K/V its cache holds. Returns (each device's output, each
+    device's aux loss: a moe layer's, else None)."""
     ps = sp.local(layer_p)
     hs = _norm(sp, xs, ps, "ln1", cfg)
     mix = [p["mix"] for p in ps]
     if kind == "ssm":
         return sp.map(torch.add, xs, M2.mamba2_spmd(sp, mix, hs, cfg,
-                                                     caches))
+                                                     caches)), None
     if kind == "rec":
         out = RG.rglru_spmd(sp, mix, hs, cfg, caches)
     else:
@@ -799,42 +791,59 @@ def _layer_spmd(sp, layer_p, xs, cfg: LMConfig, kind: str, positions, *,
                                     kv=kv)
         xs = sp.map(torch.add, xs, xout)
     hf = _norm(sp, xs, ps, "ln2", cfg)
-    return sp.map(torch.add, xs,
-                  C.mlp_spmd(sp, [p["ffn"] for p in ps], hf, cfg))
+    ffn = [p["ffn"] for p in ps]
+    if kind == "moe":
+        out, aux = MOE.moe_spmd(sp, ffn, hf, cfg)
+        return sp.map(torch.add, xs, out), aux
+    return sp.map(torch.add, xs, C.mlp_spmd(sp, ffn, hf, cfg)), None
+
+
+def _add_aux(sp, total, aux):
+    """Aux losses summed layer by layer (None: no layer has one yet)."""
+    if aux is None or total is None:
+        return total if aux is None else aux
+    return sp.map(torch.add, total, aux)
 
 
 def _stack_spmd(sp, params, xs, cfg: LMConfig, positions, *, caches=None,
-                cache_pos=None) -> list:
+                cache_pos=None):
     """The (super-)block stack and its tail partitioned (each super-block
     under `_remat` when training), as `_run_stack`; caches (placed,
-    stacked) written in place."""
+    stacked) written in place. Returns (each device's output, the summed
+    aux loss a device, or None where no layer has one)."""
     pat, n_super, tail = _kind_groups(layer_kinds(cfg))
 
     def block(layer_p, xs, layer_c):
         if len(pat) == 1:
             return _layer_spmd(sp, layer_p, xs, cfg, pat[0], positions,
                                caches=layer_c, cache_pos=cache_pos)
+        aux = None
         for i, kind in enumerate(pat):
-            xs = _layer_spmd(
+            xs, a = _layer_spmd(
                 sp, layer_p[f"l{i}"], xs, cfg, kind, positions,
                 caches=None if layer_c is None else [c[f"l{i}"]
                                                      for c in layer_c],
                 cache_pos=cache_pos)
-        return xs
+            aux = _add_aux(sp, aux, a)
+        return xs, aux
 
     train = _remat(lambda lp, xs: block(lp, xs, None), cfg)
+    aux = None
     for j in range(n_super):
         layer_p = _layer_slice(params["layers"], j)
         if caches is None:
-            xs = train(layer_p, xs)
+            xs, a = train(layer_p, xs)
         else:
-            xs = block(layer_p, xs, _cache_blocks(sp, caches["layers"], j))
+            xs, a = block(layer_p, xs, _cache_blocks(sp, caches["layers"],
+                                                     j))
+        aux = _add_aux(sp, aux, a)
     for i, kind in enumerate(tail):
-        xs = _layer_spmd(
+        xs, a = _layer_spmd(
             sp, params[f"tail{i}"], xs, cfg, kind, positions,
             caches=None if caches is None else _cache_blocks(
                 sp, caches[f"tail{i}"]), cache_pos=cache_pos)
-    return xs
+        aux = _add_aux(sp, aux, a)
+    return xs, aux
 
 
 def _arange(xs, start: int = 0) -> list:
@@ -848,7 +857,7 @@ def _encode_spmd(sp, params, cfg: LMConfig, enc) -> list:
     xs = [e.to(C.dt(cfg)) for e in enc]
     positions = _arange(xs)
     layer = _remat(lambda lp, xs: _layer_spmd(sp, lp, xs, cfg, "enc",
-                                              positions), cfg)
+                                              positions)[0], cfg)
     for j in range(cfg.n_enc_layers):
         xs = layer(_layer_slice(params["enc"], j), xs)
     return _norm(sp, xs, sp.local({"ln_enc": params["ln_enc"]}), "ln_enc",
@@ -856,20 +865,21 @@ def _encode_spmd(sp, params, cfg: LMConfig, enc) -> list:
 
 
 def _train_logits(sp, params, cfg: LMConfig, toks, embeds=None,
-                  enc=None) -> list:
-    """Each device's vocab block of the training forward's logits."""
+                  enc=None):
+    """(each device's vocab block of the training forward's logits, its
+    aux loss or None)."""
     if cfg.family in ("encdec", "audio"):
         memory = _encode_spmd(sp, params, cfg, enc)
         xs = _embed_spmd(sp, params, cfg, toks)
         positions = _arange(xs)
         layer = _remat(lambda lp, xs: _layer_spmd(
-            sp, lp, xs, cfg, "dec", positions, memory=memory), cfg)
+            sp, lp, xs, cfg, "dec", positions, memory=memory)[0], cfg)
         for j in range(cfg.n_dec_layers):
             xs = layer(_layer_slice(params["dec"], j), xs)
-        return _logits_spmd(sp, params, cfg, xs)
+        return _logits_spmd(sp, params, cfg, xs), None
     xs = _embed_spmd(sp, params, cfg, toks, embeds)
-    return _logits_spmd(sp, params, cfg,
-                        _stack_spmd(sp, params, xs, cfg, _arange(xs)))
+    xs, aux = _stack_spmd(sp, params, xs, cfg, _arange(xs))
+    return _logits_spmd(sp, params, cfg, xs), aux
 
 
 def _batch_parts(sp, tokens, embeds, enc_inputs):
@@ -882,27 +892,31 @@ def _batch_parts(sp, tokens, embeds, enc_inputs):
 
 def _forward_spmd(sp, params, cfg: LMConfig, tokens, embeds=None,
                   enc_inputs=None):
+    from repro_torch.dist import sharding as S
+
     parts = _batch_parts(sp, tokens, embeds, enc_inputs)
-    logits = _train_logits(sp, params, cfg, *parts)
+    logits, aux = _train_logits(sp, params, cfg, *parts)
     b, s = tokens.shape[0], logits[0].shape[1]
     return (_placed(sp, logits, ("batch", None, "vocab"),
                     (b, s, padded_vocab(cfg))),
-            torch.zeros((), dtype=F32, device=logits[0].device))
+            torch.zeros((), dtype=F32, device=logits[0].device)
+            if aux is None else S.Sharded(aux, S.replicated(sp.mesh)))
 
 
 def _loss_spmd(sp, params, cfg: LMConfig, batch):
     """The next-token cross-entropy over the vocab blocks: the max and the
     sum of exponentials psummed over 'model', the target's logit taken
     where it lies; each device's row sum psummed over the data axes the
-    rows split over (rows replicated there are every device's whole)."""
+    rows split over (rows replicated there are every device's whole);
+    plus 0.01 x the MoE aux loss (already the global batch's)."""
     from repro_torch.dist import sharding as S
 
     tokens = batch["tokens"]
     toks, embeds, enc = _batch_parts(sp, tokens, batch.get("embeds"),
                                      batch.get("enc_inputs"))
     s = tokens.shape[1]
-    lf = [lg[:, -s:][:, :-1].to(F32)
-          for lg in _train_logits(sp, params, cfg, toks, embeds, enc)]
+    logits, aux = _train_logits(sp, params, cfg, toks, embeds, enc)
+    lf = [lg[:, -s:][:, :-1].to(F32) for lg in logits]
     top = S.pmax([t.amax(dim=-1, keepdim=True) for t in lf], sp.mesh,
                  ("model",))
     shifted = sp.map(torch.sub, lf, top)
@@ -922,6 +936,8 @@ def _loss_spmd(sp, params, cfg: LMConfig, batch):
                   sumexp)
     if sp.rows_split:
         loss = S.psum(loss, sp.mesh, sp.data_axes)
+    if aux is not None:
+        loss = sp.map(lambda x, a: x + 0.01 * a, loss, aux)
     return S.Sharded(loss, S.replicated(sp.mesh))
 
 
@@ -994,7 +1010,7 @@ def _dec_stack_spmd(sp, params, xs, cfg: LMConfig, positions, caches,
     for j in range(cfg.n_dec_layers):
         xs = _layer_spmd(sp, _layer_slice(params["dec"], j), xs, cfg, "dec",
                          positions, caches=_cache_blocks(sp, caches, j),
-                         cache_pos=cache_pos)
+                         cache_pos=cache_pos)[0]
     return xs
 
 
@@ -1018,7 +1034,8 @@ def _prefill_spmd(sp, params, cfg: LMConfig, tokens, max_len: int,
     else:
         caches = _init_cache_spmd(sp, cfg, b, max_len)
         xs = _embed_spmd(sp, params, cfg, toks, embeds)
-        xs = _stack_spmd(sp, params, xs, cfg, _arange(xs), caches=caches)
+        xs, _ = _stack_spmd(sp, params, xs, cfg, _arange(xs),
+                            caches=caches)
     logits = _logits_spmd(sp, params, cfg, [x[:, -1:] for x in xs])
     return (_placed(sp, logits, ("batch", None, "vocab"),
                     (b, 1, padded_vocab(cfg))), caches)
@@ -1031,8 +1048,8 @@ def _decode_spmd(sp, params, cfg: LMConfig, token, caches, pos: int):
     if cfg.family in ("encdec", "audio"):
         xs = _dec_stack_spmd(sp, params, xs, cfg, positions, caches, pos)
     else:
-        xs = _stack_spmd(sp, params, xs, cfg, positions, caches=caches,
-                         cache_pos=pos)
+        xs, _ = _stack_spmd(sp, params, xs, cfg, positions, caches=caches,
+                            cache_pos=pos)
     logits = _logits_spmd(sp, params, cfg, xs)
     return (_placed(sp, logits, ("batch", None, "vocab"),
                     (token.shape[0], 1, padded_vocab(cfg))), caches)
@@ -1042,5 +1059,4 @@ __all__ = [
     "init_params", "forward_train", "loss_fn", "init_cache", "prefill",
     "decode_step", "layer_kinds", "cache_logical", "padded_vocab",
     "embed_tokens", "logits_from_hidden", "tree_map", "cache_shardings",
-    "ROADMAP_NEXT",
 ]

@@ -27,6 +27,13 @@ body only ever runs compiled, where XLA fuses the residual
 it once too (`_fused_residual`), so the residuals are the reference's bit
 for bit as well.
 `compress_tree` keeps eager JAX's two roundings.
+
+On placed trees (`Sharded` leaves of the partitioned step, gradients
+already psummed over the data axes) `compress_tree` compresses each leaf
+where it lies: the scale is the whole leaf's, the local amax maxed over
+the mesh axes that split the leaf (`quantize`), and each device quantizes
+its own block with it, so codes, scales and residuals are those of the
+gathered leaf bit for bit; the residual is placed like its parameter.
 """
 from __future__ import annotations
 
@@ -35,6 +42,7 @@ from typing import Any, List, Sequence, Tuple
 import torch
 
 from repro_torch.core.quant import true_div
+from repro_torch.dist import sharding as S
 from repro_torch.dist.sharding import data_mesh
 from repro_torch.train import tree as T
 
@@ -42,13 +50,33 @@ F32 = torch.float32
 QMAX = 127.0
 
 
+def _scale(amax: torch.Tensor) -> torch.Tensor:
+    return torch.where(amax > 0, true_div(amax, QMAX),
+                       torch.ones((), dtype=F32, device=amax.device))
+
+
+def _codes(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(x / scale), -QMAX, QMAX).to(torch.int8)
+
+
 def _q(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(int8 codes, float32 scale) of `x`, one scale for the tensor."""
-    amax = torch.amax(torch.abs(x))
-    scale = torch.where(amax > 0, true_div(amax, QMAX),
-                        torch.ones((), dtype=F32, device=x.device))
-    q = torch.clamp(torch.round(x / scale), -QMAX, QMAX).to(torch.int8)
-    return q, scale
+    scale = _scale(torch.amax(torch.abs(x)))
+    return _codes(x, scale), scale
+
+
+def quantize(x):
+    """(int8 codes, float32 scale) of `x`, one scale for the whole tensor.
+    A placed `x` gives placed codes (its blocks') and a replicated placed
+    scale: each device's amax maxed over the axes that split `x`."""
+    if not isinstance(x, S.Sharded):
+        return _q(x)
+    amax = S.pmax([torch.amax(torch.abs(t)) for t in x.parts], x.mesh,
+                  S.spec_axes(x.sharding.spec))
+    scales = [_scale(a) for a in amax]
+    return (S.Sharded([_codes(t, s) for t, s in zip(x.parts, scales)],
+                      x.sharding),
+            S.Sharded(scales, S.replicated(x.mesh)))
 
 
 def _dq(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -56,17 +84,21 @@ def _dq(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def init_error(params) -> Any:
-    """Zero float32 residuals mirroring the parameter tree."""
-    return T.tree_map(lambda p: torch.zeros_like(p, dtype=F32), params)
+    """Zero float32 residuals mirroring the parameter tree (placed as the
+    parameters are)."""
+    return T.tree_map(lambda p: S.leafwise(
+        lambda t: torch.zeros_like(t, dtype=F32), p), params)
 
 
 def compress_tree(grads, error) -> Tuple[Any, Any]:
-    """Returns (dequantized compressed grads, new error residuals)."""
+    """Returns (dequantized compressed grads, new error residuals); placed
+    leaves give placed ones (see the module docstring)."""
 
     def one(g, e):
-        corrected = g.to(F32) + e
-        deq = _dq(*_q(corrected))
-        return deq, corrected - deq
+        corrected = S.leafwise(lambda g_, e_: g_.to(F32) + e_, g, e)
+        q, scale = quantize(corrected)
+        deq = S.leafwise(_dq, q, scale)
+        return deq, S.leafwise(torch.sub, corrected, deq)
 
     flat_g, treedef = T.flatten(grads)
     flat_e = T.flatten_up_to(treedef, error)
@@ -129,4 +161,4 @@ def compressed_psum(grads_by_replica: Sequence[Any],
             [T.unflatten(treedef, x) for x in residuals])
 
 
-__all__ = ["init_error", "compress_tree", "compressed_psum"]
+__all__ = ["init_error", "compress_tree", "compressed_psum", "quantize"]

@@ -27,7 +27,11 @@ over the data axes ('pod', 'data') are psummed over those the rows split
 over (a batch that does not divide them is every device's) before they
 are cast to `accum_dtype` and accumulated, as GSPMD orders the
 reference's (FSDP's are reduce-scattered over 'data' by autograd), and
-AdamW updates each block (`train/optimizer.py`). The step runs inside
+AdamW updates each block (`train/optimizer.py`). With `compress` the
+reduced gradients are compressed where they lie, as the reference
+compresses its whole reduced tree: each leaf's one scale taken over its
+blocks, the residual placed like its parameter
+(`grad_compress.compress_tree`). The step runs inside
 `layers.exact_f32()`: float32 without TF32 and deterministic cuDNN, so a
 restart from a checkpoint repeats the straight run bit for bit on the card.
 Only floating-point leaves get gradients; integer leaves (the W8/W4 `w_q`
@@ -174,11 +178,6 @@ def make_train_step(
             lambda g: S.leafwise(lambda t: t * inv, g), acc)
 
     def train_step(params, opt_state, batch, err_state=None):
-        placed = isinstance(T.leaves(params)[0], S.Sharded)
-        if placed and compress:
-            raise NotImplementedError(
-                "int8 gradient compression of a partitioned step: the "
-                "replicas' all-reduce is `grad_compress.compressed_psum`")
         with exact_f32():
             loss, aux, grads = grads_of(params, batch)
             with torch.no_grad():

@@ -2,6 +2,8 @@
 frozen golden fixtures of the JAX package (`tests/golden/`), exactly:
 `run_qnet` logits and the per-stage `run_blocks` walk, plus the datapath
 pieces against their JAX counterparts on identical numpy inputs."""
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -93,3 +95,86 @@ def test_float32_accumulation_refuses_tf32(monkeypatch):
     with pytest.raises(RuntimeError, match="TF32"):
         io.int_pointwise(torch.zeros(2, 4, dtype=torch.int32),
                          torch.zeros(4, 3, dtype=torch.float32))
+
+
+
+# ROADMAP F13: the falsifying example that
+# `tests/test_prepared_fastpath.py::test_fuzz_fast_path_matches_reference`
+# replays, frozen with JAX's outputs (regenerate with `PYTHONPATH=src python
+# -m tests.test_torch_cu --regen`, ~30 s)
+F13_SEED = 35567
+F13_QNET, F13_NPZ = (os.path.join(os.path.dirname(__file__), "golden_torch",
+                                  "fuzz_f13_mix.{}".format(ext))
+                     for ext in ("qnet", "npz"))
+
+
+def _f13_net():
+    from tests.test_prepared_fastpath import _mixed_act_bits, _rand_netspec
+
+    return _mixed_act_bits(_rand_netspec(8, 1, 2, 5, 1, 8, 16), 1030171)
+
+
+def regen_f13():
+    """JAX's calibrated qnet of F13's net and its `run_qnet` logits on the
+    fuzz test's input, float and fixed-point requant (in int64: without
+    x64 the reference's wraps in int32, ROADMAP F1)."""
+    import jax
+
+    from repro.core import qnet as RQ
+    from repro.models import layers as RL
+
+    ref = RL.make_calibrated_qnet(_f13_net(), seed=F13_SEED % 7)
+    x = np.asarray(jax.random.uniform(jax.random.PRNGKey(F13_SEED),
+                                      (2, 16, 16, 3), minval=-1, maxval=1))
+    logits = np.asarray(rcu.run_qnet(ref, jnp.asarray(x)))
+    with jax.enable_x64(True):
+        fixed = np.asarray(rcu.run_qnet(ref, jnp.asarray(x),
+                                        fixed_point=True))
+    RQ.save_qnet(ref, F13_QNET, provenance={
+        "fuzz": "_rand_netspec(8, 1, 2, 5, 1, 8, 16), act_plan 1030171",
+        "calibration_seed": F13_SEED % 7, "input_seed": F13_SEED})
+    np.savez(F13_NPZ, input=x, logits=logits, logits_fixed=fixed)
+
+
+def test_reference_fault_f13_net_holds_on_every_port_route():
+    """ROADMAP F13: on this net JAX's stage executors are one LSB off its
+    own `run_qnet`. The port's reference interpreter, prepared path,
+    stage executors and engine all equal JAX's `run_qnet` (the frozen
+    logits) bit for bit, float and fixed-point requant, and
+    `verify_export` proves every route."""
+    from repro_torch.convert import netspec_from_reference
+    from repro_torch.serve.vision import VisionEngine, compile_stages
+    from repro_torch.train.vision import verify_export
+
+    qnet = Q.load_qnet(F13_QNET, net=netspec_from_reference(_f13_net()))
+    fix = np.load(F13_NPZ)
+    x = fix["input"]
+    pq = cu.prepare_qnet(qnet, device="cpu")
+    for fixed, want in ((False, fix["logits"]), (True, fix["logits_fixed"])):
+        got = {"reference": cu.run_qnet(qnet, x, device="cpu",
+                                        fixed_point=fixed),
+               "prepared": cu.run_qnet(pq, x, fixed_point=fixed)}
+        y = torch.from_numpy(x)
+        for st in compile_stages(pq, fixed_point=fixed, device="cpu"):
+            y = st(y)
+        got["stage-executors"] = y
+        eng = VisionEngine(pq, buckets=(2,), fixed_point=fixed, device="cpu")
+        rids = [eng.submit(img) for img in x]
+        res = eng.run()
+        got["engine"] = np.stack([res[r].logits for r in rids])
+        for route, out in got.items():
+            out = out.numpy() if isinstance(out, torch.Tensor) else out
+            np.testing.assert_array_equal(out, want, err_msg=(route, fixed))
+    report = verify_export(qnet, x, device="cpu")
+    assert {"reference", "prepared", "stage-executors",
+            "engine"} <= set(report["routes"])
+
+
+if __name__ == "__main__":
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--regen", action="store_true",
+                    help="rewrite F13's fixture with the JAX package")
+    if ap.parse_args().regen:
+        regen_f13()

@@ -249,20 +249,26 @@ def test_use_mesh_axis_size_and_shard():
         assert S.shard(x, "batch", "embed") is x
     assert S.current_mesh() is None
     # tensor parallelism over 'model' and FSDP over 'data' run for every
-    # family but moe, whose program refuses them (item 13.7b)
+    # family, moe too: its loss on either mesh is the mesh-less one's
     cfg = reduced_config("qwen2-moe-a2.7b")
     params, logical = M.init_params(cfg, 0, device="cpu")
-    for bad, fsdp in ((LM.make_mesh((1, 2), ("data", "model"),
-                                    devices=cpus(2)), False), (mesh, True)):
-        with S.use_mesh(bad, fsdp=fsdp) as m:
-            assert m is bad and S.axis_size("model") == bad.shape["model"]
+    zeros = torch.zeros((2, 8), dtype=torch.long)
+    with torch.no_grad():
+        want = float(M.loss_fn(params, cfg, {"tokens": zeros}))
+    for other, fsdp in ((LM.make_mesh((1, 2), ("data", "model"),
+                                      devices=cpus(2)), False),
+                        (mesh, True)):
+        with S.use_mesh(other, fsdp=fsdp) as m:
+            assert m is other and S.axis_size("model") == \
+                other.shape["model"]
             placed = T.tree_map(S.place, params, S.tree_shardings(
-                logical, bad, fsdp, params))
-            tokens = S.place(torch.zeros((2, 8), dtype=torch.long),
-                             S.NamedSharding(bad, S.logical_to_spec(
-                                 ("batch", None), bad)))
-            with pytest.raises(NotImplementedError, match="item 13.7b"):
-                M.loss_fn(placed, cfg, {"tokens": tokens})
+                logical, other, fsdp, params))
+            tokens = S.place(zeros, S.NamedSharding(
+                other, S.logical_to_spec(("batch", None), other)))
+            with torch.no_grad():
+                got = M.loss_fn(placed, cfg, {"tokens": tokens})
+            assert isinstance(got, S.Sharded)
+            assert abs(float(got.parts[0]) - want) <= 1e-4 * abs(want)
     with S.use_mesh(LM.make_mesh((1, 1), ("data", "model"),
                                  devices=cpus(1)), fsdp=True):
         assert S.axis_size("model") == 1

@@ -19,11 +19,14 @@ package's, and its counts against analytic ones.
   * One cell of each partitioned family beyond the dense one is `ok`:
     mamba2's long_500k on 2x16x16 (a batch of one row, replicated over
     the data axes), recurrentgemma's train_4k on 16x16 (10 heads of 256
-    split mid-head over 16), phi-3-vision's and seamless's decode_32k.
-  * The CLI: a moe cell reports `error` with the `NotImplementedError`
-    naming its ROADMAP item, long_500k is `skipped` for a dense arch; the
-    hillclimb prints the three term deltas against its baseline and
-    forwards `--precision` to the tuner.
+    split mid-head over 16), phi-3-vision's and seamless's decode_32k,
+    qwen2-moe's train_4k on 16x16 (60 experts whole over 16) and arctic's
+    decode_32k on 2x16x16 (128 experts, 8 a device).
+  * The CLI: a cell whose step fails reports `error` with its exception
+    (one made to fail here: every family partitions), long_500k is
+    `skipped` for a dense arch; the hillclimb prints the three term
+    deltas against its baseline and forwards `--precision` to the
+    tuner.
 """
 from __future__ import annotations
 
@@ -273,7 +276,9 @@ def test_one_layer_counts_equal_the_analytic_ones(tmp_path):
     ("mamba2-1.3b", "long_500k", True),
     ("recurrentgemma-2b", "train_4k", False),
     ("phi-3-vision-4.2b", "decode_32k", False),
-    ("seamless-m4t-large-v2", "decode_32k", False)],
+    ("seamless-m4t-large-v2", "decode_32k", False),
+    ("qwen2-moe-a2.7b", "train_4k", False),
+    ("arctic-480b", "decode_32k", True)],
     ids=lambda v: v if isinstance(v, str) else ("2x16x16" if v
                                                  else "16x16"))
 def test_family_cells_are_ok(tmp_path, arch, shape, multi_pod):
@@ -285,13 +290,18 @@ def test_family_cells_are_ok(tmp_path, arch, shape, multi_pod):
     assert rep["memory"]["argument_bytes"] > 0
 
 
-def test_cli_reports_error_and_skipped_cells(tmp_path, capsys):
+def test_cli_reports_error_and_skipped_cells(tmp_path, capsys, monkeypatch):
     out = str(tmp_path)
+
+    def fail(*args, **kwargs):
+        raise NotImplementedError("a decode step made to fail")
+
+    monkeypatch.setattr(D.M, "decode_step", fail)
     reps = D.main(["--arch", "qwen2-moe-a2.7b", "--shape", "decode_32k",
                    "--out", out])
     assert reps[0]["status"] == "error"
-    assert reps[0]["error"].startswith("NotImplementedError")
-    assert "item 13.7b" in reps[0]["error"]
+    assert reps[0]["error"] == ("NotImplementedError: a decode step made "
+                                "to fail")
     reps = D.main(["--arch", "llama3.2-1b", "--shape", "long_500k",
                    "--multi-pod", "--out", out])
     assert reps[0]["status"] == "skipped"

@@ -23,8 +23,10 @@ two devices, qk_norm on: the 8-over-16 of the full widths), 8-bit AdamW
 state under FSDP, `accum_dtype=bfloat16` at grad_accum 2 against JAX's
 (gradients within `LM_BF16_GRAD_L2`: each microbatch's f32 gradients
 differ in their last bits, which can move a bf16 rounding), the
-collectives' backward passes against their transposes, and the refusals
-(the moe family on a mesh of several devices names its ROADMAP item).
+collectives' backward passes against their transposes, the moe family
+on a mesh, int8 gradient compression of the placed step (bit for bit
+the gathered leaves'), and the training driver over the visible devices
+for every family and with `--grad-compress`.
 """
 from __future__ import annotations
 
@@ -350,17 +352,77 @@ def test_collectives_backward_are_their_transposes():
 
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b"])
 @pytest.mark.parametrize("mesh_id", ["tp", "fsdp"])
-def test_other_families_refuse_a_mesh(arch, mesh_id):
-    """The moe family, whose partitioning waits for item 13.7b, refuses a
-    mesh of several devices (the others partition:
-    tests/test_torch_tp_families.py)."""
-    cfg = reduced_config(arch)
+def test_moe_partitions_on_a_mesh(arch, mesh_id):
+    """The moe family partitions like every other: its bf16 loss on a mesh
+    of several devices (capacity 1.0: pairs drop) within the bf16 bound
+    of the mesh-less one (f32 against JAX: tests/test_torch_tp_moe.py)."""
+    cfg = dataclasses.replace(reduced_config(arch), capacity_factor=1.0)
     params, logical = TM.init_params(cfg, 0, device="cpu")
+    tokens = torch.from_numpy(_batch(cfg)["tokens"]).long()
     shape, fsdp = MESHES[mesh_id]
     pp, batch = _place(_mesh(shape), fsdp, params, logical,
-                       {"tokens": torch.zeros((2, 8), dtype=torch.long)})
-    with pytest.raises(NotImplementedError, match="item 13.7b"):
-        TM.loss_fn(pp, cfg, batch)
+                       {"tokens": tokens})
+    with torch.no_grad():
+        want = float(TM.loss_fn(params, cfg, {"tokens": tokens}))
+        got = TM.loss_fn(pp, cfg, batch)
+    assert isinstance(got, S.Sharded)
+    assert _rel(float(got.parts[0]), want) <= PP.LM_BF16_LOSS_RTOL
+
+
+@pytest.mark.parametrize("mesh_id", sorted(MESHES))
+def test_placed_compression_equals_the_gathered_leaves(mesh_id):
+    """int8 compression of the partitioned step's reduced gradients (a
+    residual from an earlier step added): each leaf's codes, scale,
+    dequantized gradient and new residual, compressed where they lie,
+    equal bit for bit the port's and JAX's `compress_tree` of the
+    gathered leaves, placed like the gradients; a placed `train_step`
+    with `compress` runs, its residual that of the same gradients."""
+    from repro.train import grad_compress as RGC
+    from repro_torch.train import grad_compress as GC
+
+    case = _jax_case("llama3.2-1b")
+    _, tcfg, params, _, b = case[:5]
+    tparams = params_from_reference(to_numpy_tree(params), device="cpu")
+    _, logical = TM.init_params(tcfg, 0, device="meta")
+    shape, fsdp = MESHES[mesh_id]
+    mesh = _mesh(shape)
+    pp, pb = _place(mesh, fsdp, tparams, logical, torch_batch(b))
+    _, _, grads = PTL.value_and_grad(
+        lambda p, bb: TM.loss_fn(p, tcfg, bb), pp, pb)
+    grads = PTL._psum_data(grads, PTL.row_axes(pb))
+    rng = np.random.default_rng(5)
+    err_full = PT.tree_map(lambda g: torch.from_numpy(
+        1e-4 * rng.standard_normal(tuple(g.shape))).float(), grads)
+    err = PT.tree_map(lambda e, g: S.place(e, g.sharding), err_full, grads)
+    deq, new_err = GC.compress_tree(grads, err)
+    want = GC.compress_tree(_full(grads), err_full)
+    jax_want = RGC.compress_tree(
+        *(jax.tree.map(jnp.asarray, to_numpy_tree(t))
+          for t in (_full(grads), err_full)))
+    split = 0
+    for g, e, got_d, got_e, w_d, w_e, j_d, j_e in zip(*(
+            PT.leaves(t) for t in (grads, err, deq, new_err, *want)),
+            *(jax.tree.leaves(t) for t in jax_want)):
+        assert got_d.sharding == got_e.sharding == g.sharding
+        split += bool(S.spec_axes(g.sharding.spec))
+        for got, w, j in ((got_d, w_d, j_d), (got_e, w_e, j_e)):
+            assert torch.equal(got.gather(), w)
+            np.testing.assert_array_equal(w.numpy(), np.asarray(j))
+        corrected = S.leafwise(torch.add, g, e)
+        q, scale = GC.quantize(corrected)
+        wq, ws = GC._q(corrected.gather())
+        assert torch.equal(q.gather(), wq)
+        assert all(torch.equal(s_, ws) for s_ in scale.parts)
+    assert split > 0 or mesh_id == "dp"
+    step = PTL.make_train_step(tcfg, PO.AdamWConfig(**OCFG), compress=True)
+    err0 = GC.init_error(pp)
+    *_, err1, metrics = step(pp, PO.init_state(pp), pb, err0)
+    _, want1 = GC.compress_tree(_full(grads), PT.tree_map(
+        lambda e: e.gather(), err0))
+    for p, got, w in zip(PT.leaves(pp), PT.leaves(err1), PT.leaves(want1)):
+        assert got.sharding == p.sharding
+        assert torch.equal(got.gather(), w)
+    assert np.isfinite(float(metrics["loss"]))
 
 
 def test_batch_rows_must_split_over_the_data_axes():
@@ -377,22 +439,30 @@ def test_batch_rows_must_split_over_the_data_axes():
                                                    dtype=torch.long)})
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "phi-3-vision-4.2b",
-                                  "seamless-m4t-large-v2", "mamba2-1.3b",
-                                  "recurrentgemma-2b"])
+CLI_SPANS = [(a, []) for a in ("llama3.2-1b", "phi-3-vision-4.2b",
+                               "seamless-m4t-large-v2", "mamba2-1.3b",
+                               "recurrentgemma-2b", "qwen2-moe-a2.7b")]
+CLI_SPANS.append(("llama3.2-1b", ["--grad-compress"]))
+
+
+@pytest.mark.parametrize("arch,extra", CLI_SPANS, ids=[
+    a if not x else "grad-compress" for a, x in CLI_SPANS])
 def test_train_cli_is_data_parallel_over_the_visible_devices(
-        tmp_path, monkeypatch, arch):
+        tmp_path, monkeypatch, arch, extra):
     """`launch/train.py` over two visible devices (the CPU named twice):
-    a (2, 1) host mesh, each device its rows; the first loss within the
-    bf16 bound of one device's (the reduced config is bf16), and a
-    restart from a placed checkpoint continues the straight run bit for
-    bit. The driver feeds tokens alone, as the reference's does, so the
-    audio family (whose encoder needs its frames) fails alike on one
-    device and on the mesh it spans."""
+    a (2, 1) host mesh, each device its rows, for every family (moe's
+    capacity and aux loss over the whole batch) and with
+    `--grad-compress` (the psummed gradients compressed, the residual
+    placed and checkpointed); the first loss within the bf16 bound of one
+    device's (the reduced config is bf16), and a restart from a placed
+    checkpoint continues the straight run bit for bit. The driver feeds
+    tokens alone, as the reference's does, so the audio family (whose
+    encoder needs its frames) fails alike on one device and on the mesh
+    it spans."""
     from repro_torch.launch import train as CLI
 
     argv = ["--arch", arch, "--reduced", "--steps", "3", "--device", "cpu",
-            "--log-every", "100"]
+            "--log-every", "100"] + extra
     if arch == "seamless-m4t-large-v2":
         with pytest.raises(ValueError, match="enc_inputs"):
             CLI.main(argv)
@@ -430,16 +500,13 @@ def test_train_cli_is_data_parallel_over_the_visible_devices(
 
 
 @pytest.mark.parametrize("arch,extra", [
-    ("qwen2-moe-a2.7b", []),
-    ("llama3.2-1b", ["--grad-compress"]),
     ("llama3.2-1b", ["--device", "cpu:0"]),
-], ids=["moe", "grad-compress", "indexed-device"])
+], ids=["indexed-device"])
 def test_train_cli_keeps_one_device_where_the_step_is_not_partitioned(
         monkeypatch, arch, extra):
-    """With two visible devices, a family whose partitioning is not
-    ported, `--grad-compress` and a device named by index all train on
-    the (1, 1) mesh of that one device, as with one visible device: the
-    same losses, bit for bit."""
+    """With two visible devices, a device named by index trains on the
+    (1, 1) mesh of that one device, as with one visible device: the same
+    losses, bit for bit."""
     from repro_torch.launch import train as CLI
 
     argv = ["--arch", arch, "--reduced", "--steps", "2", "--device", "cpu",
